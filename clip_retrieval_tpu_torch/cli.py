@@ -1,0 +1,75 @@
+"""clip-retrieval-tpu-torch CLI: the `inference` subcommand of the port.
+
+Same signature-driven argparse as `clip_retrieval_tpu/cli.py`: the options
+of a subcommand are the target function's parameters, so
+`clip-retrieval-tpu-torch inference --input_dataset d --output_folder o
+--clip_model ViT-L/14` calls `inference.main.main(...)`.  Also runnable as
+`python -m clip_retrieval_tpu_torch.cli ...`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ast
+import inspect
+import sys
+from typing import Any, Callable
+
+
+def _lazy_commands() -> dict[str, Callable[[], Callable]]:
+    """Subcommand → import-on-demand target (keeps CLI start fast)."""
+
+    def inference():
+        from .inference.main import main as fn
+
+        return fn
+
+    return {"inference": inference}
+
+
+def _coerce(value: str) -> Any:
+    """Parse CLI strings into python values: int/float/bool/list/None/str."""
+    try:
+        return ast.literal_eval(value)
+    except (ValueError, SyntaxError):
+        lowered = value.lower()
+        if lowered in ("true", "false"):
+            return lowered == "true"
+        if lowered in ("none", "null"):
+            return None
+        return value
+
+
+def _build_parser(fn: Callable, prog: str) -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(prog=prog, description=(fn.__doc__ or "").split("\n")[0])
+    for name, param in inspect.signature(fn).parameters.items():
+        if param.kind in (param.VAR_POSITIONAL, param.VAR_KEYWORD):
+            continue
+        if param.default is inspect.Parameter.empty:
+            parser.add_argument(f"--{name}", required=True)
+        else:
+            parser.add_argument(f"--{name}", default=param.default)
+    return parser
+
+
+def main(argv: list[str] | None = None):
+    argv = sys.argv[1:] if argv is None else argv
+    commands = _lazy_commands()
+    top = argparse.ArgumentParser(prog="clip-retrieval-tpu-torch")
+    top.add_argument("command", choices=sorted(commands))
+    if not argv or argv[0] in ("-h", "--help"):
+        top.parse_args(argv or ["-h"])
+        return
+    command, rest = argv[0], argv[1:]
+    if command not in commands:
+        top.error(f"unknown command {command!r}")
+    fn = commands[command]()
+    ns = _build_parser(fn, prog=f"clip-retrieval-tpu-torch {command}").parse_args(rest)
+    kwargs = {k: (_coerce(v) if isinstance(v, str) else v) for k, v in vars(ns).items()}
+    result = fn(**kwargs)
+    if result is not None:
+        print(result)
+
+
+if __name__ == "__main__":
+    main()

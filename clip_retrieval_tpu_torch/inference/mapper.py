@@ -1,0 +1,126 @@
+"""Mapper: batches → L2-normalized fp16 embeddings on one device.
+
+Counterpart of `clip_retrieval_tpu/inference/mapper.py`.  Input batch dict
+with "image_tensor" (uint8 HWC) / "text_tokens" → output dict with
+"image_embs" / "text_embs" as L2-normalized **fp16 numpy**, passing
+"image_filename" / "text" / "metadata" through.
+
+- One process owns one explicit device.  The default is "cuda", and the
+  mapper raises when no GPU is visible: only an explicit device="cpu" runs on
+  the CPU.
+- compute_dtype="auto" is bfloat16 on CUDA and float32 on the CPU; weights
+  stay f32 on the device and are cast per matmul (see `models/clip.py`).
+- Batches are padded to the fixed batch size, as in the JAX package, so the
+  device always sees one shape.
+- Only uint8 pixels and int tokens cross to the device, only fp16
+  embeddings come back.  Batches staged by `staging.DeviceStagingReader`
+  are already padded and on the device.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from ..models import clip as tclip
+from ..models import zoo
+from .staging import STAGED_KEY
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def resolve_device(device: str | torch.device) -> torch.device:
+    """The device to run on; raises for CUDA when no GPU is visible (there
+    is no silent CPU fallback)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={str(device)!r} but torch.cuda.is_available() is False; pass device='cpu' to run on the CPU"
+        )
+    return device
+
+
+class ClipMapper:
+    """Callable mapping reader batches to embedding dicts."""
+
+    def __init__(
+        self,
+        enable_image: bool,
+        enable_text: bool,
+        clip_model: str = "ViT-B/32",
+        use_mclip: bool = False,
+        mclip_model: str = "",
+        checkpoint: str | None = None,
+        batch_size: int = 256,
+        compute_dtype: str = "auto",
+        device: str | torch.device = "cuda",
+    ):
+        self.device = resolve_device(device)
+        if use_mclip:
+            raise NotImplementedError("mCLIP text towers are not ported yet (ROADMAP queue 1, 'Other towers')")
+        self.enable_image = enable_image
+        self.enable_text = enable_text
+        self.batch_size = batch_size
+        self.bundle = zoo.load_model(clip_model, checkpoint, self.device)
+        self.model = self.bundle.model.eval()
+        if compute_dtype == "auto":
+            compute_dtype = "bfloat16" if self.device.type == "cuda" else "float32"
+        if compute_dtype not in _DTYPES:
+            raise ValueError(f"compute_dtype must be 'auto', 'bfloat16' or 'float32', got {compute_dtype!r}")
+        self.compute_dtype = _DTYPES[compute_dtype]
+
+    # -- helpers ----------------------------------------------------------
+
+    def pad_batch(self, arr: np.ndarray) -> tuple[np.ndarray, int]:
+        """Pad the leading dim to the fixed batch size."""
+        n = arr.shape[0]
+        if n < self.batch_size:
+            pad = np.zeros((self.batch_size - n, *arr.shape[1:]), dtype=arr.dtype)
+            arr = np.concatenate([arr, pad])
+        return arr, n
+
+    def to_device(self, arr: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(arr).to(self.device)
+
+    def embed_images(self, images: torch.Tensor) -> torch.Tensor:
+        """Padded device uint8 (B, H, W, 3) → fp16 (B, embed_dim) on device."""
+        with torch.inference_mode():
+            return tclip.encode_image(self.model, images, compute_dtype=self.compute_dtype).half()
+
+    def embed_texts(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Padded device int (B, context_length) → fp16 (B, embed_dim)."""
+        with torch.inference_mode():
+            return tclip.encode_text(self.model, tokens, compute_dtype=self.compute_dtype).half()
+
+    # -- main entry -------------------------------------------------------
+
+    def __call__(self, batch: dict[str, Any]) -> dict[str, Any]:
+        out: dict[str, Any] = {}
+        staged_n = batch.get(STAGED_KEY)
+        img = txt = None
+        # queue both towers on the device before reading either back
+        if self.enable_image:
+            images = batch["image_tensor"]
+            if staged_n is None:
+                arr, n = self.pad_batch(images)
+                img = self.embed_images(self.to_device(arr))[:n]
+            else:
+                img = self.embed_images(images)[:staged_n]
+        if self.enable_text:
+            tokens = batch["text_tokens"]
+            if staged_n is None:
+                arr, n = self.pad_batch(tokens.astype(np.int32))
+                txt = self.embed_texts(self.to_device(arr))[:n]
+            else:
+                txt = self.embed_texts(tokens)[:staged_n]
+        if img is not None:
+            out["image_embs"] = img.cpu().numpy()
+            out["image_filename"] = batch["image_filename"]
+        if txt is not None:
+            out["text_embs"] = txt.cpu().numpy()
+            out["text"] = batch["text"]
+        if "metadata" in batch:
+            out["metadata"] = batch["metadata"]
+        return out

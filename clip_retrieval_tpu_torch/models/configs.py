@@ -1,0 +1,252 @@
+"""Model configurations for CLIP towers.
+
+The reference delegates model definition to `all_clip.load_clip`
+(rom1504/clip-retrieval `clip_retrieval/clip_inference/mapper.py:4,36`); we define the
+architectures natively.  Configs cover the model families the reference's docs
+exercise (ViT-B/32, B/16, L/14, H/14, g/14 + the mCLIP text variants handled
+separately in loaders) plus the openai ResNet family (RN50, RN101,
+RN50x{4,16,64}) the reference reaches through the same `clip_model` string.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPConfig:
+    name: str = "ViT-B/32"
+    embed_dim: int = 512
+
+    # vision tower
+    image_size: int = 224
+    patch_size: int = 32
+    vision_width: int = 768
+    vision_layers: int = 12
+    vision_heads: int = 12
+    vision_mlp_ratio: float = 4.0
+
+    # ResNet vision tower (openai RN50/RN101/RN50x{4,16,64} family): when
+    # resnet_layers is set the image tower is a ModifiedResNet and
+    # vision_width is the stem width (64 for RN50); vision_heads is the
+    # attention-pool head count; patch_size/vision_layers/mlp_ratio are
+    # unused.  The text tower is the same transformer either way.
+    resnet_layers: Optional[tuple] = None
+
+    # text tower
+    vocab_size: int = 49408
+    context_length: int = 77
+    text_width: int = 512
+    text_layers: int = 12
+    text_heads: int = 8
+    text_mlp_ratio: float = 4.0
+
+    # activation: openai checkpoints use quick_gelu; open_clip H/g use gelu
+    act: str = "quick_gelu"
+    layernorm_eps: float = 1e-5
+
+    @property
+    def vision_kind(self) -> str:
+        return "resnet" if self.resnet_layers else "vit"
+
+    @property
+    def grid_size(self) -> int:
+        # ModifiedResNet downsamples 32x total (stem 4x + 3 strided stages)
+        if self.resnet_layers:
+            return self.image_size // 32
+        return self.image_size // self.patch_size
+
+    @property
+    def attnpool_dim(self) -> int:
+        """Channel width entering the attention pool (stage-4 output)."""
+        return self.vision_width * 32  # width*8 planes x expansion 4
+
+    @property
+    def num_patches(self) -> int:
+        return self.grid_size * self.grid_size
+
+    @property
+    def vision_seq_len(self) -> int:
+        return self.num_patches + 1  # + class token
+
+    @property
+    def vision_head_dim(self) -> int:
+        return self.vision_width // self.vision_heads
+
+    @property
+    def text_head_dim(self) -> int:
+        return self.text_width // self.text_heads
+
+    def replace(self, **kw) -> "CLIPConfig":
+        return dataclasses.replace(self, **kw)
+
+
+_REGISTRY: dict[str, CLIPConfig] = {}
+
+
+def _register(cfg: CLIPConfig) -> CLIPConfig:
+    _REGISTRY[cfg.name] = cfg
+    return cfg
+
+
+VIT_B32 = _register(CLIPConfig(name="ViT-B/32"))
+VIT_B16 = _register(CLIPConfig(name="ViT-B/16", patch_size=16))
+VIT_L14 = _register(
+    CLIPConfig(
+        name="ViT-L/14",
+        embed_dim=768,
+        patch_size=14,
+        vision_width=1024,
+        vision_layers=24,
+        vision_heads=16,
+        text_width=768,
+        text_layers=12,
+        text_heads=12,
+    )
+)
+VIT_L14_336 = _register(VIT_L14.replace(name="ViT-L/14@336px", image_size=336))
+VIT_H14 = _register(
+    CLIPConfig(
+        name="ViT-H/14",
+        embed_dim=1024,
+        patch_size=14,
+        vision_width=1280,
+        vision_layers=32,
+        vision_heads=16,
+        text_width=1024,
+        text_layers=24,
+        text_heads=16,
+        act="gelu",
+    )
+)
+VIT_G14 = _register(
+    CLIPConfig(
+        name="ViT-g/14",
+        embed_dim=1024,
+        patch_size=14,
+        vision_width=1408,
+        vision_layers=40,
+        vision_heads=16,
+        vision_mlp_ratio=4.3637,
+        text_width=1024,
+        text_layers=24,
+        text_heads=16,
+        act="gelu",
+    )
+)
+
+# openai CLIP ResNet family (the reference accepts these via all_clip, e.g.
+# `clip_model="RN50"`; hyperparameters follow the published openai CLIP
+# builds — stem width, per-stage block counts, attnpool heads = width/2).
+RN50 = _register(
+    CLIPConfig(
+        name="RN50",
+        embed_dim=1024,
+        resnet_layers=(3, 4, 6, 3),
+        vision_width=64,
+        vision_heads=32,
+        text_width=512,
+        text_heads=8,
+    )
+)
+RN101 = _register(
+    CLIPConfig(
+        name="RN101",
+        embed_dim=512,
+        resnet_layers=(3, 4, 23, 3),
+        vision_width=64,
+        vision_heads=32,
+        text_width=512,
+        text_heads=8,
+    )
+)
+RN50X4 = _register(
+    CLIPConfig(
+        name="RN50x4",
+        embed_dim=640,
+        image_size=288,
+        resnet_layers=(4, 6, 10, 6),
+        vision_width=80,
+        vision_heads=40,
+        text_width=640,
+        text_heads=10,
+    )
+)
+RN50X16 = _register(
+    CLIPConfig(
+        name="RN50x16",
+        embed_dim=768,
+        image_size=384,
+        resnet_layers=(6, 8, 18, 8),
+        vision_width=96,
+        vision_heads=48,
+        text_width=768,
+        text_heads=12,
+    )
+)
+RN50X64 = _register(
+    CLIPConfig(
+        name="RN50x64",
+        embed_dim=1024,
+        image_size=448,
+        resnet_layers=(3, 15, 36, 10),
+        vision_width=128,
+        vision_heads=64,
+        text_width=1024,
+        text_heads=16,
+    )
+)
+
+# Tiny config for tests: runs in milliseconds on CPU.
+TEST_TINY = _register(
+    CLIPConfig(
+        name="test-tiny",
+        embed_dim=32,
+        image_size=32,
+        patch_size=8,
+        vision_width=48,
+        vision_layers=2,
+        vision_heads=4,
+        # 520 ≥ byte-fallback tokenizer vocab (514) for vocab-file-free tests
+        vocab_size=520,
+        context_length=16,
+        text_width=32,
+        text_layers=2,
+        text_heads=4,
+    )
+)
+
+
+# Tiny ResNet config: stem 3->4->4->8, stages (1,1,1,1), 64px -> 2x2 grid.
+TEST_TINY_RN = _register(
+    CLIPConfig(
+        name="test-tiny-rn",
+        embed_dim=16,
+        image_size=64,
+        resnet_layers=(1, 1, 1, 1),
+        vision_width=8,
+        vision_heads=4,
+        vocab_size=520,
+        context_length=16,
+        text_width=32,
+        text_layers=2,
+        text_heads=4,
+    )
+)
+
+
+def get_config(name: str) -> CLIPConfig:
+    """Look up a config by name. Accepts openai-style names (ViT-B/32) and
+    hyphen/underscore variants (ViT-B-32, vit_b32)."""
+    if name in _REGISTRY:
+        return _REGISTRY[name]
+    norm = name.replace("_", "-").replace("/", "-").lower()
+    for key, cfg in _REGISTRY.items():
+        if key.replace("/", "-").lower() == norm:
+            return cfg
+    raise KeyError(f"unknown CLIP config {name!r}; known: {sorted(_REGISTRY)}")
+
+
+def list_configs() -> list[str]:
+    return sorted(_REGISTRY)

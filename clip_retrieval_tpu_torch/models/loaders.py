@@ -1,0 +1,280 @@
+"""Checkpoint loading: JAX param trees and torch/HF CLIP weights → `CLIP`.
+
+Counterpart of `clip_retrieval_tpu/models/loaders.py`, with the same key maps
+for ViT towers:
+
+- HF `transformers.CLIPModel` state dicts  (keys `vision_model.*`)
+- openai CLIP / open_clip state dicts      (keys `visual.*`, fused in_proj)
+- the JAX package's own param tree          (`from_jax_params`)
+
+Every source is first turned into the JAX package's nested tree of numpy
+arrays (blocks stacked on a leading layer axis, x@W kernels), and
+`from_jax_params` copies that tree into the port's modules.  ResNet image
+towers are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from .clip import CLIP
+from .configs import CLIPConfig
+
+
+def _np(x) -> np.ndarray:
+    if isinstance(x, np.ndarray):
+        return x
+    if isinstance(x, torch.Tensor):
+        # bf16/fp8 tensors have no numpy dtype: upcast first
+        return x.detach().cpu().float().numpy()
+    return np.asarray(x)
+
+
+def _stack(sd: Mapping[str, Any], fmt: str, n: int) -> np.ndarray:
+    return np.stack([_np(sd[fmt.format(i=i)]) for i in range(n)])
+
+
+# ---------------------------------------------------------------------------
+# JAX param tree → modules
+# ---------------------------------------------------------------------------
+
+
+def _copy(dst: torch.Tensor, src, name: str):
+    arr = np.array(src, dtype=np.float32, order="C")  # a writable copy, 0-d stays 0-d
+    if tuple(arr.shape) != tuple(dst.shape):
+        raise ValueError(f"{name}: shape {arr.shape} does not match the model's {tuple(dst.shape)}")
+    dst.copy_(torch.from_numpy(arr))
+
+
+def _copy_blocks(blocks, tree: Mapping[str, Any], prefix: str):
+    for i, blk in enumerate(blocks):
+        for sub in ("ln_1", "ln_2"):
+            for name in ("scale", "bias"):
+                _copy(getattr(getattr(blk, sub), name), tree[sub][name][i], f"{prefix}.{sub}.{name}[{i}]")
+        for name in ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "bo"):
+            _copy(getattr(blk.attn, name), tree["attn"][name][i], f"{prefix}.attn.{name}[{i}]")
+        for name in ("w_in", "b_in", "w_out", "b_out"):
+            _copy(getattr(blk.mlp, name), tree["mlp"][name][i], f"{prefix}.mlp.{name}[{i}]")
+
+
+def from_jax_params(tree: Mapping[str, Any], cfg: CLIPConfig, device: str | torch.device = "cpu") -> CLIP:
+    """The JAX package's param tree (arrays as numpy, blocks stacked on a
+    leading layer axis) → a `CLIP` module on `device`, weights in f32."""
+    model = CLIP(cfg, torch.device("cpu"))
+    vt, tt = tree["visual"], tree["text"]
+    v, t = model.visual, model.text
+    with torch.no_grad():
+        _copy(v.patch_embed.kernel, vt["patch_embed"]["kernel"], "visual.patch_embed.kernel")
+        for name in ("class_emb", "pos_emb", "proj"):
+            _copy(getattr(v, name), vt[name], f"visual.{name}")
+        for ln in ("ln_pre", "ln_post"):
+            for name in ("scale", "bias"):
+                _copy(getattr(getattr(v, ln), name), vt[ln][name], f"visual.{ln}.{name}")
+        _copy_blocks(v.blocks, vt["blocks"], "visual.blocks")
+        for name in ("token_emb", "pos_emb", "proj"):
+            _copy(getattr(t, name), tt[name], f"text.{name}")
+        for name in ("scale", "bias"):
+            _copy(getattr(t.ln_final, name), tt["ln_final"][name], f"text.ln_final.{name}")
+        _copy_blocks(t.blocks, tt["blocks"], "text.blocks")
+        _copy(model.logit_scale, np.reshape(tree["logit_scale"], ()), "logit_scale")
+    return model.to(device)
+
+
+# ---------------------------------------------------------------------------
+# HF transformers CLIPModel
+# ---------------------------------------------------------------------------
+
+
+def _hf_tower(sd, prefix: str, n_layers: int):
+    L = prefix + ".encoder.layers.{i}."
+
+    def ws(name):  # linear weight, (out, in) → (L, in, out)
+        return _stack(sd, L + name + ".weight", n_layers).transpose(0, 2, 1)
+
+    def bs(name):
+        return _stack(sd, L + name + ".bias", n_layers)
+
+    return {
+        "ln_1": {"scale": _stack(sd, L + "layer_norm1.weight", n_layers), "bias": bs("layer_norm1")},
+        "attn": {
+            "wq": ws("self_attn.q_proj"),
+            "wk": ws("self_attn.k_proj"),
+            "wv": ws("self_attn.v_proj"),
+            "wo": ws("self_attn.out_proj"),
+            "bq": bs("self_attn.q_proj"),
+            "bk": bs("self_attn.k_proj"),
+            "bv": bs("self_attn.v_proj"),
+            "bo": bs("self_attn.out_proj"),
+        },
+        "ln_2": {"scale": _stack(sd, L + "layer_norm2.weight", n_layers), "bias": bs("layer_norm2")},
+        "mlp": {"w_in": ws("mlp.fc1"), "b_in": bs("mlp.fc1"), "w_out": ws("mlp.fc2"), "b_out": bs("mlp.fc2")},
+    }
+
+
+def hf_tree(sd: Mapping[str, Any], cfg: CLIPConfig) -> dict:
+    """HF CLIPModel state dict → the JAX package's param tree (numpy)."""
+    g = lambda k: _np(sd[k])
+    # HF has a typo'd key "pre_layrnorm" in CLIPVisionTransformer
+    pre_ln = "vision_model.pre_layrnorm" if "vision_model.pre_layrnorm.weight" in sd else "vision_model.pre_layernorm"
+    visual = {
+        # (W, 3, P, P) → (P, P, 3, W)
+        "patch_embed": {"kernel": g("vision_model.embeddings.patch_embedding.weight").transpose(2, 3, 1, 0)},
+        "class_emb": g("vision_model.embeddings.class_embedding").reshape(-1),
+        "pos_emb": g("vision_model.embeddings.position_embedding.weight"),
+        "ln_pre": {"scale": g(pre_ln + ".weight"), "bias": g(pre_ln + ".bias")},
+        "blocks": _hf_tower(sd, "vision_model", cfg.vision_layers),
+        "ln_post": {"scale": g("vision_model.post_layernorm.weight"), "bias": g("vision_model.post_layernorm.bias")},
+        "proj": g("visual_projection.weight").T,
+    }
+    text = {
+        "token_emb": g("text_model.embeddings.token_embedding.weight"),
+        "pos_emb": g("text_model.embeddings.position_embedding.weight"),
+        "blocks": _hf_tower(sd, "text_model", cfg.text_layers),
+        "ln_final": {"scale": g("text_model.final_layer_norm.weight"), "bias": g("text_model.final_layer_norm.bias")},
+        "proj": g("text_projection.weight").T,
+    }
+    return {"visual": visual, "text": text, "logit_scale": g("logit_scale").reshape(())}
+
+
+def convert_hf_state_dict(sd: Mapping[str, Any], cfg: CLIPConfig, device: str | torch.device = "cpu") -> CLIP:
+    return from_jax_params(hf_tree(sd, cfg), cfg, device)
+
+
+# ---------------------------------------------------------------------------
+# openai CLIP / open_clip
+# ---------------------------------------------------------------------------
+
+
+def _openai_tower(sd, prefix: str, n_layers: int, width: int):
+    L = prefix + ".resblocks.{i}."
+    in_w = _stack(sd, L + "attn.in_proj_weight", n_layers)  # (L, 3W, W)
+    in_b = _stack(sd, L + "attn.in_proj_bias", n_layers)  # (L, 3W)
+
+    def lin(name):  # (L, out, in) → (L, in, out)
+        return _stack(sd, L + name + ".weight", n_layers).transpose(0, 2, 1)
+
+    return {
+        "ln_1": {"scale": _stack(sd, L + "ln_1.weight", n_layers), "bias": _stack(sd, L + "ln_1.bias", n_layers)},
+        "attn": {
+            "wq": in_w[:, :width].transpose(0, 2, 1),
+            "wk": in_w[:, width : 2 * width].transpose(0, 2, 1),
+            "wv": in_w[:, 2 * width :].transpose(0, 2, 1),
+            "wo": lin("attn.out_proj"),
+            "bq": in_b[:, :width],
+            "bk": in_b[:, width : 2 * width],
+            "bv": in_b[:, 2 * width :],
+            "bo": _stack(sd, L + "attn.out_proj.bias", n_layers),
+        },
+        "ln_2": {"scale": _stack(sd, L + "ln_2.weight", n_layers), "bias": _stack(sd, L + "ln_2.bias", n_layers)},
+        "mlp": {
+            "w_in": lin("mlp.c_fc"),
+            "b_in": _stack(sd, L + "mlp.c_fc.bias", n_layers),
+            "w_out": lin("mlp.c_proj"),
+            "b_out": _stack(sd, L + "mlp.c_proj.bias", n_layers),
+        },
+    }
+
+
+def openai_tree(sd: Mapping[str, Any], cfg: CLIPConfig) -> dict:
+    """openai/open_clip ViT state dict → the JAX package's param tree."""
+    if "visual.layer1.0.conv1.weight" in sd:
+        raise NotImplementedError(
+            "ResNet (ModifiedResNet) checkpoints are not ported yet (ROADMAP queue 1, 'Other towers')"
+        )
+    g = lambda k: _np(sd[k])
+    visual = {
+        "patch_embed": {"kernel": g("visual.conv1.weight").transpose(2, 3, 1, 0)},
+        "class_emb": g("visual.class_embedding").reshape(-1),
+        "pos_emb": g("visual.positional_embedding"),
+        "ln_pre": {"scale": g("visual.ln_pre.weight"), "bias": g("visual.ln_pre.bias")},
+        "blocks": _openai_tower(sd, "visual.transformer", cfg.vision_layers, cfg.vision_width),
+        "ln_post": {"scale": g("visual.ln_post.weight"), "bias": g("visual.ln_post.bias")},
+        "proj": g("visual.proj"),
+    }
+    text = {
+        "token_emb": g("token_embedding.weight"),
+        "pos_emb": g("positional_embedding"),
+        "blocks": _openai_tower(sd, "transformer", cfg.text_layers, cfg.text_width),
+        "ln_final": {"scale": g("ln_final.weight"), "bias": g("ln_final.bias")},
+        "proj": g("text_projection"),
+    }
+    return {"visual": visual, "text": text, "logit_scale": g("logit_scale").reshape(())}
+
+
+def convert_openai_state_dict(
+    sd: Mapping[str, Any], cfg: CLIPConfig, device: str | torch.device = "cpu"
+) -> CLIP:
+    return from_jax_params(openai_tree(sd, cfg), cfg, device)
+
+
+# ---------------------------------------------------------------------------
+# dispatch
+# ---------------------------------------------------------------------------
+
+
+def detect_format(sd: Mapping[str, Any]) -> str:
+    if any(k.startswith("vision_model.") for k in sd):
+        return "hf"
+    if any(k.startswith("visual.") for k in sd):
+        return "openai"
+    raise ValueError("unrecognized CLIP state dict format")
+
+
+def convert_state_dict(sd: Mapping[str, Any], cfg: CLIPConfig, device: str | torch.device = "cpu") -> CLIP:
+    if detect_format(sd) == "hf":
+        return convert_hf_state_dict(sd, cfg, device)
+    return convert_openai_state_dict(sd, cfg, device)
+
+
+def config_from_hf(hf_config) -> CLIPConfig:
+    """Build a CLIPConfig from a transformers CLIPConfig."""
+    v, t = hf_config.vision_config, hf_config.text_config
+    return CLIPConfig(
+        name=getattr(hf_config, "name_or_path", "hf") or "hf",
+        embed_dim=hf_config.projection_dim,
+        image_size=v.image_size,
+        patch_size=v.patch_size,
+        vision_width=v.hidden_size,
+        vision_layers=v.num_hidden_layers,
+        vision_heads=v.num_attention_heads,
+        vision_mlp_ratio=v.intermediate_size / v.hidden_size,
+        vocab_size=t.vocab_size,
+        context_length=t.max_position_embeddings,
+        text_width=t.hidden_size,
+        text_layers=t.num_hidden_layers,
+        text_heads=t.num_attention_heads,
+        text_mlp_ratio=t.intermediate_size / t.hidden_size,
+        act="quick_gelu" if v.hidden_act == "quick_gelu" else "gelu",
+        layernorm_eps=v.layer_norm_eps,
+    )
+
+
+def load_checkpoint(
+    path: str, cfg: CLIPConfig | None = None, device: str | torch.device = "cpu"
+) -> tuple[CLIP, CLIPConfig]:
+    """Load a .pt/.bin/.npz checkpoint from disk and convert.
+
+    Returns (model, cfg).  cfg is read from a config.json beside an HF
+    checkpoint when not given."""
+    import os
+
+    if path.endswith(".npz"):
+        with np.load(path) as z:
+            sd = {k: z[k] for k in z.files}
+    else:
+        obj = torch.load(path, map_location="cpu", weights_only=False)
+        sd = obj.get("state_dict", obj) if isinstance(obj, dict) else obj.state_dict()
+    if cfg is None:
+        cfg_path = os.path.join(os.path.dirname(path), "config.json")
+        if not os.path.exists(cfg_path):
+            raise ValueError("cfg required when no config.json is present")
+        import json
+
+        from transformers import CLIPConfig as HFCLIPConfig
+
+        with open(cfg_path) as f:
+            cfg = config_from_hf(HFCLIPConfig(**json.load(f)))
+    return convert_state_dict(sd, cfg, device), cfg

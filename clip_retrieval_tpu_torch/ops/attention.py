@@ -1,0 +1,61 @@
+"""Scaled-dot-product attention for the CLIP towers.
+
+Counterpart of `clip_retrieval_tpu/ops/attention.py`.  The model's blocks
+call `sdpa_packed` on the packed (B, S, W) projection layout; it goes to
+kernel K1 (`flash.flash_attention_packed`), which launches the CUDA kernel
+for CUDA tensors and runs the plain math for CPU tensors.  There is no
+environment switch and no fallback between the two.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import flash
+
+
+def sdpa_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = False,
+    scale: float | None = None,
+    bf16_logits: bool = False,
+) -> torch.Tensor:
+    """Plain attention on (B, H, S, dh).
+
+    bf16_logits=False: logits and softmax in f32.
+    bf16_logits=True: logits rounded to bfloat16 before the max, exp and
+    normalisation, which still run in f32 (the JAX package's 'xla_bf16'
+    route).
+    """
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if causal:
+        s_q, s_k = logits.shape[-2], logits.shape[-1]
+        keep = torch.ones(s_q, s_k, dtype=torch.bool, device=q.device).tril()
+        logits = logits.masked_fill(~keep, -1e30)
+    if bf16_logits:
+        logits = logits.to(torch.bfloat16)
+        mx = logits.amax(dim=-1, keepdim=True)
+        p = torch.exp((logits - mx).float())
+        probs = p / p.sum(dim=-1, keepdim=True)
+    else:
+        probs = torch.softmax(logits, dim=-1)
+    out = torch.matmul(probs.to(v.dtype).float(), v.float())
+    return out.to(v.dtype)
+
+
+def sdpa_packed(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    heads: int,
+    *,
+    causal: bool = False,
+) -> torch.Tensor:
+    """Attention on the packed (B, S, W) projection layout, W = heads·dh:
+    kernel K1 on CUDA tensors, its plain version on CPU tensors."""
+    return flash.flash_attention_packed(q, k, v, heads, causal=causal)

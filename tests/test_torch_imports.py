@@ -1,0 +1,91 @@
+"""The port imports no jax, and never falls back to the CPU by itself.
+
+Importing every module of `clip_retrieval_tpu_torch` in a fresh interpreter
+must leave `jax` out of `sys.modules` (this test process has jax loaded by
+tests/conftest.py, hence the subprocess).  Entry points default to
+device="cuda" and raise when no GPU is visible.
+"""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from clip_retrieval_tpu_torch import cli
+from clip_retrieval_tpu_torch.inference.distributor import make_distributor
+from clip_retrieval_tpu_torch.inference.main import main as torch_inference
+from clip_retrieval_tpu_torch.inference.mapper import ClipMapper
+
+from tests.test_inference.fixtures import make_files_corpus
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "clip_retrieval_tpu_torch"
+
+
+def _run(code: str, **env):
+    full_env = {**os.environ, **env}
+    return subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=full_env, capture_output=True, text=True,
+                          timeout=300)
+
+
+def test_importing_every_module_leaves_jax_out():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import clip_retrieval_tpu_torch as p\n"
+        "mods = [m.name for m in pkgutil.walk_packages(p.__path__, 'clip_retrieval_tpu_torch.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "assert len(mods) >= 20, mods\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'jaxlib')))\n"
+        "print('OK' if not bad else 'JAX ' + ' '.join(bad[:5]))\n"
+    )
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("OK"), proc.stdout
+
+
+def test_sources_have_no_jax_import():
+    pattern = re.compile(r"^\s*(import jax|from jax)", re.M)
+    offenders = [str(p) for p in PKG.rglob("*.py") if pattern.search(p.read_text())]
+    assert not offenders
+
+
+def test_mapper_default_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        ClipMapper(enable_image=True, enable_text=True, clip_model="test-tiny")
+
+
+def test_main_default_device_raises_before_work(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    dataset = make_files_corpus(str(tmp_path / "c"), n=2)
+    with pytest.raises(RuntimeError, match="is_available"):
+        torch_inference(input_dataset=dataset, output_folder=str(tmp_path / "out"), clip_model="test-tiny")
+    assert not (tmp_path / "out").exists()
+
+
+def test_cli_inference_on_cpu(tmp_path):
+    dataset = make_files_corpus(str(tmp_path / "c"), n=5)
+    out = tmp_path / "out"
+    cli.main(["inference", "--input_dataset", dataset, "--output_folder", str(out), "--clip_model", "test-tiny",
+              "--batch_size", "2", "--num_prepro_workers", "1", "--device", "cpu"])
+    import numpy as np
+
+    emb = np.load(out / "img_emb" / "img_emb_0.npy")
+    assert emb.shape == (5, 32) and emb.dtype == np.float16
+
+
+@pytest.mark.parametrize("strategy", ["pod", "slurm", "pyspark"])
+def test_unported_distributors_name_the_roadmap(strategy):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_distributor(strategy, [0], {})
+
+
+def test_chip_smoke_refuses_without_cuda():
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT, capture_output=True, text=True, timeout=300,
+                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
