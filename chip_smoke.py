@@ -2,28 +2,48 @@
 """Bring-up check of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Run from the root of a checkout: `python3 chip_smoke.py`.  It builds every
-CUDA kernel of the embedding path from `clip_retrieval_tpu_torch/csrc/`,
-checks each against its plain PyTorch version on the card, drives the
-port's inference entry point end to end at ViT-L/14 (full width, random
-weights from `init_clip`, bf16, batch 256, image and text towers), checks
-the embeddings, compares the bf16 kernel path with the f32 plain path on the
-same weights, and times the mapper and the kernel.
+CUDA kernel of the port from `clip_retrieval_tpu_torch/csrc/` (one nvcc per
+source, in parallel), checks each against its plain PyTorch version on the
+card, and drives the port's two main paths at ViT-L/14 (full width, random
+weights from `init_clip`):
+
+- embedding inference: the `inference` entry point, bf16, batch 256, image
+  and text towers; the embeddings are checked, the bf16 kernel path is
+  compared with the f32 plain path on the same weights, and the mapper and
+  kernel K1 are timed;
+- the /knn-service query path: a synthetic IVF-int8 index at the repo's 10M
+  serving shape (10,000,000 rows of d=768, nlist 16,384, nprobe 64) is
+  generated on the card, saved, and served by the `back` entry point
+  (`clip_back`, wsgiref on 127.0.0.1) answering embedding, text, image,
+  dedup and metadata requests over HTTP, serially and from 32 concurrent
+  clients; recall@40 of the served answers is held to an exhaustive scan by
+  kernel K3's plain version, and K3, search batches, HTTP latency and QPS
+  are timed.
 
 Phases, each of which stops the script with a non-zero exit when it fails:
-device, build, kernel vs plain, main path, tower parity, times.  The line
-before the last is a JSON object describing each kernel; the last line is
+device, build, K1 vs plain, K3 vs plain, main path, tower parity, times,
+index, served path, recall, query times.  Kernel launch counts are set to 0
+just before each main path and read just after it.  The line before the
+last is a JSON object describing each kernel; the last line is
 `{"ok": true, "device": {...}}`.  Without a CUDA device, or without the
 package beside it, the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import base64
+import http.client
 import importlib.util
+import io
+import itertools
 import json
+import math
 import os
 import shutil
+import socket
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -37,6 +57,14 @@ GEOMETRIES = [(12, 64, 50, False), (16, 64, 257, False), (16, 80, 257, False), (
 BF16_MAX_ABS, BF16_MIN_COS, F32_MAX_ABS = 2e-2, 0.9999, 1e-4
 TOWER_MIN_COS = 0.999  # tests/test_models/test_clip_parity.py:101-102
 WORK_DIR = os.path.join("build", "chip_smoke")
+# the query path: the 10M serving shape of clip_retrieval_tpu/index/ivf_int8.py at ViT-L/14's width
+N_ROWS, DIM, NLIST, NPROBE = 10_000_000, 768, 16_384, 64
+INDEX_NAME = "smoke10m"
+TOPK = 40  # num_images of every /knn-service request here
+N_QUERIES = 64  # stored rows queried with their f32 originals
+CLIENTS = 32
+MIN_RECALL = 0.95
+GEN_BLOCK = 1 << 20  # rows generated per block on the card
 
 
 class PhaseError(Exception):
@@ -126,9 +154,10 @@ def write_corpus(folder: str):
             f.write(f"a photo of sample number {i}, seed {int(rng.integers(1 << 20))}")
 
 
-def phase_main_path(flash, gpu: str) -> int:
+def phase_main_path(flash, int8scan, gpu: str) -> int:
     """The `inference` entry point over 512 JPEG+caption samples at
-    ViT-L/14 bf16 b256; returns K1's launch count in that run."""
+    ViT-L/14 bf16 b256; returns K1's launch count in that run (K3 is not on
+    this path and must not launch)."""
     from clip_retrieval_tpu_torch.inference.main import main as clip_inference
 
     shutil.rmtree(WORK_DIR, ignore_errors=True)
@@ -138,6 +167,7 @@ def phase_main_path(flash, gpu: str) -> int:
         check(importlib.util.find_spec(mod) is not None, f"{mod} is needed to write the parquet metadata")
     write_corpus(corpus)
     flash.flash_attention_packed.launches = 0
+    int8scan.int8_gather_scan.launches = 0
     t0 = time.perf_counter()
     clip_inference(
         input_dataset=corpus, output_folder=out, batch_size=BATCH, num_prepro_workers=8, clip_model=MODEL,
@@ -163,6 +193,7 @@ def phase_main_path(flash, gpu: str) -> int:
     check(stats.get("sample_count") == SAMPLES, f"stats count {stats.get('sample_count')}")
     expected = 2 * (24 + 12)  # 2 batches x (vision + text layers)
     check(launches == expected, f"K1 launched {launches} times on the main path, expected {expected}")
+    check(int8scan.int8_gather_scan.launches == 0, "K3 launched on the embedding path")
     return launches
 
 
@@ -262,6 +293,425 @@ def phase_times(flash, mapper, gpu: str) -> tuple[float, float, float]:
     return (*results[0], worst)
 
 
+# --------------------------------------------------------------------------
+# the /knn-service query path
+# --------------------------------------------------------------------------
+
+
+def check_k3(int8scan, args) -> float:
+    """K3 against its plain version on the same inputs: bit-identical, so the
+    -inf sets are equal and the finite entries differ by 0.  Returns the max
+    abs difference of the finite entries (0.0)."""
+    import torch
+
+    got = int8scan.int8_gather_scan(*args)
+    ref = int8scan.int8_gather_scan_reference(*args)
+    torch.cuda.synchronize()
+    b, d = args[0].shape
+    where = f"B={b} Lc={args[2].shape[1]} d={d} U={args[5].shape[0]}"
+    check(got.shape == ref.shape, f"K3 shape {tuple(got.shape)} vs {tuple(ref.shape)} at {where}")
+    check(torch.equal(torch.isneginf(got), torch.isneginf(ref)), f"K3 -inf set differs at {where}")
+    fin = torch.isfinite(ref)
+    err = (got[fin] - ref[fin]).abs().max().item() if bool(fin.any()) else 0.0
+    check(torch.equal(got, ref), f"K3 not bit-identical to its plain version at {where} (max abs {err:.3e})")
+    return err
+
+
+def phase_k3(int8scan) -> float:
+    """K3 against its plain version at B ∈ {1,3,17,32,64} × Lc ∈ {32,256} ×
+    d ∈ {512,768,1024}, selections with repeats and the all-padding chunk."""
+    import torch
+
+    from clip_retrieval_tpu_torch.ops.int8mm import quantize_rows_device
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    nchunks, worst, n = 24, 0.0, 0
+    sel = torch.tensor([5, 5, nchunks - 1, 0, 17, 5, 23, 11], dtype=torch.int32, device="cuda")
+    for d in (512, 768, 1024):
+        for lc in (32, 256):
+            rows = torch.randint(-127, 128, (nchunks, lc, d), generator=gen, device="cuda", dtype=torch.int8)
+            scales = torch.rand((nchunks, lc), generator=gen, device="cuda") + 0.5
+            pos = torch.arange(nchunks * lc, dtype=torch.int32, device="cuda").reshape(nchunks, lc)
+            pad = torch.rand((nchunks, lc), generator=gen, device="cuda") < 0.1
+            pad[-1] = True  # the all-padding chunk
+            scales[pad] = 0.0
+            pos[pad] = -1
+            for b in (1, 3, 17, 32, 64):
+                qq, qs = quantize_rows_device(torch.randn(b, d, generator=gen, device="cuda"))
+                worst = max(worst, check_k3(int8scan, (qq, qs, rows, scales, pos, sel)))
+                n += 1
+    print(f"  K3 vs plain: {n} geometries (B 1/3/17/32/64 x Lc 32/256 x d 512/768/1024, U=8 with repeats and the "
+          f"all-padding chunk) bit-identical; max abs err {worst}")
+    return worst
+
+
+def phase_index(gpu: str):
+    """Generate the synthetic 10M x 768 IVF-int8 index on the card
+    (list-grouped by construction: random unit centroids, seeded multinomial
+    list sizes, rows normalize(c_l + 0.75·g/√d)), quantize it with
+    `quantize_rows_device`, save it with a `caption` parquet and
+    indices_paths.json.  Returns (index on the card, ids of the queried
+    rows, their f32 originals)."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import pyarrow.parquet as pq
+    import torch
+
+    from clip_retrieval_tpu_torch.index.ivf_int8 import IVFInt8Index
+    from clip_retrieval_tpu_torch.ops.int8mm import quantize_rows_device
+
+    t0 = time.perf_counter()
+    folder = os.path.join(WORK_DIR, "index")
+    os.makedirs(os.path.join(folder, "metadata"), exist_ok=True)
+    rng = np.random.default_rng(5)
+    sizes = rng.multinomial(N_ROWS, np.full(NLIST, 1.0 / NLIST))
+    offsets = np.zeros(NLIST + 1, np.int64)
+    np.cumsum(sizes, out=offsets[1:])
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    cent = torch.randn(NLIST, DIM, generator=gen, device="cuda")
+    cent /= cent.norm(dim=1, keepdim=True)
+    owner = torch.repeat_interleave(torch.arange(NLIST, device="cuda"), torch.from_numpy(sizes).cuda())
+    q_vectors = np.empty((N_ROWS, DIM), np.int8)
+    scales = np.empty((N_ROWS,), np.float32)
+    sample_pos = np.sort(rng.choice(N_ROWS, N_QUERIES, replace=False))
+    originals = np.empty((N_QUERIES, DIM), np.float32)
+    noise = 0.75 / math.sqrt(DIM)
+    for a in range(0, N_ROWS, GEN_BLOCK):
+        b = min(a + GEN_BLOCK, N_ROWS)
+        x = cent[owner[a:b]] + noise * torch.randn(b - a, DIM, generator=gen, device="cuda")
+        x /= x.norm(dim=1, keepdim=True)
+        qb, sb = quantize_rows_device(x)
+        q_vectors[a:b] = qb.cpu().numpy()
+        scales[a:b] = sb.cpu().numpy()
+        m = (sample_pos >= a) & (sample_pos < b)
+        if m.any():
+            originals[m] = x[torch.from_numpy(sample_pos[m] - a).cuda()].cpu().numpy()
+        del x
+    list_ids = rng.permutation(N_ROWS).astype(np.int64)
+    t_gen = time.perf_counter() - t0
+    index = IVFInt8Index(DIM, cent.cpu().numpy(), offsets, list_ids, q_vectors, scales, nprobe=NPROBE, device="cuda")
+    index.save(os.path.join(folder, "image.index"))
+    captions = pc.binary_join_element_wise("row", pc.cast(pa.array(np.arange(N_ROWS)), pa.string()), " ")
+    pq.write_table(pa.table({"caption": captions}), os.path.join(folder, "metadata", "metadata_0.parquet"))
+    with open(os.path.join(WORK_DIR, "indices_paths.json"), "w") as f:
+        json.dump({INDEX_NAME: folder}, f)
+    t_save = time.perf_counter() - t0 - t_gen
+    index._ensure_device()
+    torch.cuda.synchronize()
+    rows = index._device["rows"]
+    cos = torch.nn.functional.cosine_similarity(torch.from_numpy(originals).cuda(), cent[owner[sample_pos]], dim=1)
+    print(f"  [{gpu}] index: {N_ROWS} x {DIM}, nlist {NLIST}, nprobe {NPROBE}; list sizes {sizes.min()}..{sizes.max()}"
+          f"; Lc {rows.shape[1]}, {rows.shape[0]} chunks, {rows.numel() / 1e9:.3f} GB int8 on the card; row-centroid"
+          f" cosine {cos.mean().item():.3f}; generated in {t_gen:.1f} s, saved with metadata in {t_save:.1f} s, "
+          f"device image in {time.perf_counter() - t0 - t_gen - t_save:.1f} s")
+    check(rows.shape[1] == 256, f"Lc {rows.shape[1]}, expected 256")
+    return index, list_ids[sample_pos], originals
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http_json(port: int, method: str, path: str, body=None, timeout: float = 300.0):
+    """One request to the local server: (status, parsed JSON or raw bytes)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        data = None if body is None else json.dumps(body).encode()
+        conn.request(method, path, body=data, headers={"Content-Type": "application/json"})
+        r = conn.getresponse()
+        raw = r.read()
+        ctype = r.getheader("Content-Type", "")
+        return r.status, (json.loads(raw) if ctype.startswith("application/json") else raw)
+    finally:
+        conn.close()
+
+
+def knn(port: int, **body):
+    status, res = http_json(port, "POST", "/knn-service",
+                            {"modality": "image", "num_images": TOPK, "indice_name": INDEX_NAME, **body})
+    check(status == 200, f"/knn-service answered {status}: {str(res)[:300]}")
+    return res
+
+
+def check_results(res, where: str):
+    check(len(res) == TOPK, f"{where}: {len(res)} results, expected {TOPK}")
+    sims = [r["similarity"] for r in res]
+    check(all(a >= b for a, b in zip(sims, sims[1:])), f"{where}: similarities not descending")
+    check(all(np.isfinite(sims)), f"{where}: non-finite similarity")
+    check(all(r.get("caption") == f"row {r['id']}" for r in res), f"{where}: caption does not match the id")
+
+
+def jpeg_b64(seed: int) -> str:
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    buf = io.BytesIO()
+    Image.fromarray(rng.integers(0, 256, (300, 260, 3), dtype=np.uint8)).save(buf, format="JPEG", quality=90)
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+def concurrent_embedding_queries(port: int, queries, ids, per_client: int = 1) -> float:
+    """CLIENTS threads, released together, each sending `per_client`
+    embedding queries; every first result must be the queried row.  Returns
+    the wall seconds of the burst."""
+    barrier = threading.Barrier(CLIENTS + 1)
+    errors: list[str] = []
+
+    def client(c: int):
+        barrier.wait()
+        for r in range(per_client):
+            j = (c + r * CLIENTS) % len(queries)
+            try:
+                res = knn(port, embedding_input=queries[j].tolist())
+                if res[0]["id"] != int(ids[j]):
+                    errors.append(f"client {c}: first id {res[0]['id']} != {ids[j]}")
+            except Exception as e:  # reported below
+                errors.append(f"client {c}: {e}")
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(CLIENTS)]
+    for t in threads:
+        t.start()
+    barrier.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    check(not errors, f"concurrent queries failed: {errors[:3]}")
+    return wall
+
+
+def phase_serve(flash, int8scan, sample_ids, originals, gpu: str) -> tuple[dict, list]:
+    """The `back` entry point on the generated index, driven over HTTP.
+    Returns (launch counts of the path, served ids of the serial embedding
+    queries)."""
+    from clip_retrieval_tpu_torch.back.app import clip_back
+
+    port = free_port()
+    boot_error: list[BaseException] = []
+
+    def boot():
+        try:
+            clip_back(indices_paths=os.path.join(WORK_DIR, "indices_paths.json"), port=port, clip_model=MODEL,
+                      device="cuda", provide_aesthetic_embeddings=False, enable_faiss_memory_mapping=True,
+                      http_backend="wsgiref")
+        except BaseException as e:  # reported by the poll below
+            boot_error.append(e)
+
+    flash.flash_attention_packed.launches = 0
+    int8scan.int8_gather_scan.launches = 0
+    t0 = time.perf_counter()
+    server = threading.Thread(target=boot, daemon=True, name="clip_back")
+    server.start()
+    while True:
+        check(server.is_alive(), f"clip_back ended during boot: {boot_error[:1]}")
+        try:
+            if http_json(port, "GET", "/health", timeout=5)[0] == 200:
+                break
+        except OSError:
+            pass
+        check(time.perf_counter() - t0 < 600, "clip_back did not answer /health within 600 s")
+        time.sleep(0.5)
+    print(f"  [{gpu}] clip_back up in {time.perf_counter() - t0:.1f} s (model init, index load and device image, "
+          f"warm-up); launches during boot: K1 {flash.flash_attention_packed.launches}, "
+          f"K3 {int8scan.int8_gather_scan.launches}")
+
+    def counts():
+        return flash.flash_attention_packed.launches, int8scan.int8_gather_scan.launches
+
+    # (a) serial embedding queries: b=1 batches → the static route
+    _, k3_0 = counts()
+    served, first_sims = [], []
+    for i in range(N_QUERIES):
+        res = knn(port, embedding_input=originals[i].tolist())
+        check_results(res, f"embedding query {i}")
+        check(res[0]["id"] == int(sample_ids[i]) and res[0]["similarity"] >= 0.98,
+              f"embedding query {i}: first result {res[0]['id']} ({res[0]['similarity']:.4f}), expected "
+              f"{sample_ids[i]} with similarity >= 0.98")
+        served.append([r["id"] for r in res])
+        first_sims.append(res[0]["similarity"])
+    k1_a, k3_a = counts()
+    check(k3_a > k3_0, "K3 did not launch for the serial embedding queries (static route)")
+    print(f"  (a) {N_QUERIES} serial embedding queries: every first result is the queried row, similarity "
+          f"{min(first_sims):.5f}..{max(first_sims):.5f}; K3 launches +{k3_a - k3_0}")
+    # (b) text queries
+    for i in range(8):
+        check_results(knn(port, text=f"a photo of query number {i}, the {i}th of eight"), f"text query {i}")
+    k1_b, k3_b = counts()
+    check(k1_b > k1_a, "K1 did not launch for the text queries")
+    print(f"  (b) 8 text queries: 40 results each, descending, captions match; K1 launches +{k1_b - k1_a}")
+    # (c) base64 JPEG image queries
+    for i in range(2):
+        check_results(knn(port, image=jpeg_b64(10 + i)), f"image query {i}")
+    k1_c, _ = counts()
+    check(k1_c > k1_b, "K1 did not launch for the image queries")
+    print(f"  (c) 2 base64 JPEG queries: 200; K1 launches +{k1_c - k1_b}")
+    # (d) dedup
+    res = knn(port, embedding_input=originals[0].tolist(), deduplicate=True)
+    ids = [r["id"] for r in res]
+    check(0 < len(ids) <= TOPK and len(set(ids)) == len(ids) and ids[0] == int(sample_ids[0]),
+          "deduplicated query answered badly")
+    print(f"  (d) deduplicate=true: {len(ids)} results")
+    # (e) metadata and index list
+    status, metas = http_json(port, "POST", "/metadata", {"ids": [int(i) for i in sample_ids[:5]],
+                                                          "indice_name": INDEX_NAME})
+    check(status == 200 and [m["metadata"]["caption"] for m in metas] == [f"row {i}" for i in sample_ids[:5]],
+          "/metadata answered badly")
+    status, names = http_json(port, "GET", "/indices-list")
+    check(status == 200 and names == [INDEX_NAME], f"/indices-list answered {status} {names}")
+    status, body = http_json(port, "GET", "/metrics")
+    check(status == 200 and b"full_knn_request_time_count" in body, "/metrics answered badly")
+    print("  (e) /metadata, /indices-list, /metrics: 200 and as expected")
+    # (f) concurrent embedding queries: batches ≥ 2 → the exact route
+    _, k3_e = counts()
+    max_batch = 0
+    for _ in range(3):
+        concurrent_embedding_queries(port, originals, sample_ids)
+        status, stats = http_json(port, "GET", "/serving-stats")
+        check(status == 200, "/serving-stats failed")
+        sizes = [int(s) for key, row in stats["search"].items() if key.endswith(f"-k{TOPK}")
+                 for s in row["batch_sizes"]]
+        max_batch = max(sizes or [0])
+        if max_batch >= 2:
+            break
+    _, k3_f = counts()
+    check(max_batch >= 2, "32 concurrent queries never formed a search batch of 2 or more")
+    check(k3_f > k3_e, "K3 did not launch for the concurrent queries (exact route)")
+    print(f"  (f) {CLIENTS} concurrent embedding queries: largest search batch {max_batch}; K3 launches "
+          f"+{k3_f - k3_e}; search batch sizes {stats['search']}")
+    k1, k3 = counts()
+    print(f"  served path launches: K1 {k1}, K3 {k3}")
+    return {"k1": k1, "k3": k3, "port": port}, served
+
+
+def phase_recall(index, int8scan, originals, served) -> float:
+    """recall@40 of the served answers of (a) against an exhaustive scan of
+    every chunk by K3's plain version, in blocks of chunks with a running
+    top-k merge."""
+    import torch
+
+    from clip_retrieval_tpu_torch.ops.int8mm import quantize_rows_device
+    from clip_retrieval_tpu_torch.ops.topk import topk_merge
+
+    dv = index._device
+    qq, qs = quantize_rows_device(torch.from_numpy(originals).cuda())
+    nchunks = dv["rows"].shape[0]
+    best_v = best_p = None
+    t0 = time.perf_counter()
+    for a in range(0, nchunks, 2048):
+        sel = torch.arange(a, min(a + 2048, nchunks), dtype=torch.int32, device="cuda")
+        scores = int8scan.int8_gather_scan_reference(qq, qs, dv["rows"], dv["scales"], dv["pos"], sel)
+        vals, idx = torch.topk(scores, TOPK, dim=1)
+        pos = dv["pos"][a : a + sel.shape[0]].reshape(-1)[idx].long()
+        best_v, best_p = (vals, pos) if best_v is None else topk_merge(best_v, best_p, vals, pos, TOPK)
+    truth = index._positions_to_ids(best_p.cpu().numpy())
+    recall = float(np.mean([len(set(s) & set(t.tolist())) / TOPK for s, t in zip(served, truth)]))
+    print(f"  recall@{TOPK} of the {len(served)} served embedding queries vs the exhaustive plain scan of "
+          f"{nchunks} chunks: {recall:.4f} (scan {time.perf_counter() - t0:.1f} s)")
+    check(recall >= MIN_RECALL, f"recall@{TOPK} {recall:.4f} < {MIN_RECALL}")
+    return recall
+
+
+def p50_ms(fn, iters: int, warm: int = 3) -> tuple[float, float]:
+    """(p50, p90) in ms on the host clock; fn ends in a read-back."""
+    for _ in range(warm):
+        fn()
+    samples = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        samples.append(time.perf_counter() - t0)
+    samples.sort()
+    return 1e3 * samples[len(samples) // 2], 1e3 * samples[int(len(samples) * 0.9)]
+
+
+def profile_search(index, qb, iters: int = 10) -> float:
+    """Device time per search batch from torch.profiler ("Self CUDA time
+    total" over `iters` batches); prints the top device operators.  Returns
+    nan when the profiler reports no device total."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    index.search_and_reconstruct(qb, TOPK)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            index.search_and_reconstruct(qb, TOPK)
+        torch.cuda.synchronize()
+    table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=12)
+    print(table)
+    m = re.search(r"Self CUDA time total: ([\d.]+)(us|ms|s)\b", table)
+    if m is None:
+        return float("nan")
+    return float(m.group(1)) * {"us": 1e-3, "ms": 1.0, "s": 1e3}[m.group(2)] / iters
+
+
+def phase_query_times(index, int8scan, originals, sample_ids, port: int, gpu: str) -> tuple[float, float, float]:
+    """K3 vs plain at the served shape, search-batch p50 by route, HTTP p50
+    and QPS.  Returns (K3 ms, plain ms, K3 max abs err)."""
+    import torch
+
+    from clip_retrieval_tpu_torch.index.ivf_int8 import _coarse_probe
+    from clip_retrieval_tpu_torch.ops.int8mm import quantize_rows_device
+
+    dv = index._device
+    q32 = torch.from_numpy(originals[:32]).cuda()
+    per_q = _coarse_probe(q32, dv["coarse"], NPROBE).cpu().numpy()
+    sel = torch.from_numpy(index._union_chunk_sel(per_q)).cuda()
+    qq, qs = quantize_rows_device(q32)
+    args = (qq, qs, dv["rows"], dv["scales"], dv["pos"], sel)
+    err = check_k3(int8scan, args)
+    kern = lambda: int8scan.int8_gather_scan(*args)
+    plain = lambda: int8scan.int8_gather_scan_reference(*args)
+    for fn in (kern, plain):
+        fn()
+    times: dict[str, list[float]] = {"K3": [], "plain": []}
+    for name, fn in (("plain", plain), ("K3", kern), ("K3", kern), ("plain", plain)):
+        times[name].append(cuda_ms(fn, 20))
+    k3_ms, plain_ms = float(np.mean(times["K3"])), float(np.mean(times["plain"]))
+    u, lc = sel.shape[0], dv["rows"].shape[1]
+    gbytes = (u * lc * (DIM + 8) + 32 * u * lc * 4) / 1e9
+    print(f"  [{gpu}] K3 at the served shape (B=32, U={u} chunks of a real batch's union, {index.last_union_chunks} "
+          f"before padding, Lc={lc}, d={DIM}): {k3_ms:.4f} ms/call (runs {times['K3']}); plain version "
+          f"{plain_ms:.4f} ms/call (runs {times['plain']}); {gbytes:.3f} GB moved -> {gbytes / k3_ms:.3f} TB/s, "
+          f"{gbytes / k3_ms / 3.35:.3f} of 3.35 TB/s")
+
+    for b in (1, 32):
+        qb = originals[:b]
+        route = index.resolve_union(b)
+        p50, p90 = p50_ms(lambda: index.search_and_reconstruct(qb, TOPK), 30)
+        print(f"  [{gpu}] search batch B={b} ({route} route, search_and_reconstruct k={TOPK}): p50 {p50:.3f} ms, "
+              f"p90 {p90:.3f} ms (host clock, 30 batches)")
+        busy = profile_search(index, qb)
+        print(f"  [{gpu}] search batch B={b}: device busy {busy:.3f} ms per batch ({busy / p50:.3f} of the p50)")
+
+    serial = itertools.count()
+    text_query = lambda: knn(port, text=f"serial text query {next(serial)}")
+    emb_query = lambda: knn(port, embedding_input=originals[next(serial) % N_QUERIES].tolist())
+
+    for name, fn in (("text", text_query), ("embedding", emb_query)):
+        p50, p90 = p50_ms(fn, 30)
+        print(f"  [{gpu}] HTTP /knn-service serial {name} queries, k={TOPK}: p50 {p50:.2f} ms, p90 {p90:.2f} ms "
+              f"(30 requests, host clock)")
+    per_client = 16
+    wall = concurrent_embedding_queries(port, originals, sample_ids, per_client=per_client)
+    print(f"  [{gpu}] HTTP embedding queries, {CLIENTS} concurrent clients x {per_client}: "
+          f"{CLIENTS * per_client / wall:.1f} QPS ({wall:.2f} s)")
+    status, st = http_json(port, "POST", "/stage-times",
+                           {"text_bucket": 16, "image_bucket": 16, "search_bucket": 64, "iters": 10, "k": TOPK})
+    check(status == 200 and st["search"]["p50_ms"] > 0, f"/stage-times answered {status}: {st}")
+    print(f"  [{gpu}] /stage-times (in-server p50, each call ends in its read-back): {json.dumps(st)}")
+    status, summary = http_json(port, "GET", "/metrics-summary")
+    check(status == 200, "/metrics-summary failed")
+    print(f"  [{gpu}] /metrics-summary over every request of this run:\n{summary.decode()}")
+    return k3_ms, plain_ms, err
+
+
 def run() -> int:
     import torch
 
@@ -272,9 +722,9 @@ def run() -> int:
         print("chip_smoke: run it from the root of a checkout (clip_retrieval_tpu_torch not found)", file=sys.stderr)
         return 2
     from clip_retrieval_tpu_torch.inference.mapper import ClipMapper
-    from clip_retrieval_tpu_torch.ops import flash
+    from clip_retrieval_tpu_torch.ops import cuda_build, flash, int8scan
 
-    torch.backends.cuda.matmul.allow_tf32 = False  # f32 references stay f32
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 references stay f32, the f32 int8 product exact
     torch.backends.cudnn.allow_tf32 = False
 
     phase = "device"
@@ -286,14 +736,18 @@ def run() -> int:
 
         phase = "build"
         t0 = time.perf_counter()
-        flash.build()
-        print(f"build: flash_packed (nvcc, then load) in {time.perf_counter() - t0:.2f} s")
+        build_s = cuda_build.build_all()
+        print(f"build: {', '.join(f'{k} {v:.2f} s' for k, v in build_s.items())} (nvcc, then load; in parallel), "
+              f"{time.perf_counter() - t0:.2f} s in all")
 
-        phase = "kernel vs plain"
+        phase = "K1 vs plain"
         max_abs = phase_kernels(flash)
 
+        phase = "K3 vs plain"
+        k3_err = phase_k3(int8scan)
+
         phase = "main path"
-        launches = phase_main_path(flash, gpu)
+        launches = phase_main_path(flash, int8scan, gpu)
 
         mapper = ClipMapper(enable_image=True, enable_text=True, clip_model=MODEL, batch_size=BATCH, device="cuda")
         phase = "tower parity"
@@ -301,6 +755,22 @@ def run() -> int:
 
         phase = "times"
         k1_ms, plain_ms, max_abs_b256 = phase_times(flash, mapper, gpu)
+        del mapper
+        torch.cuda.empty_cache()
+
+        phase = "index"
+        index, sample_ids, originals = phase_index(gpu)
+
+        phase = "served path"
+        served_counts, served = phase_serve(flash, int8scan, sample_ids, originals, gpu)
+
+        phase = "recall"
+        phase_recall(index, int8scan, originals, served)
+
+        phase = "query times"
+        k3_ms, k3_plain_ms, k3_err_served = phase_query_times(
+            index, int8scan, originals, sample_ids, served_counts["port"], gpu
+        )
     except Exception as e:  # every phase failure ends the run with its phase named
         import traceback
 
@@ -310,20 +780,39 @@ def run() -> int:
     finally:
         shutil.rmtree(WORK_DIR, ignore_errors=True)
 
-    kernels = [{
-        "name": "flash_attention_packed",
-        "route": "cuda",
-        "source": "clip_retrieval_tpu_torch/csrc/flash_packed.cu",
-        "replaces": "clip_retrieval_tpu/ops/flash.py:191",
-        "launches": launches,
-        "max_abs_err": max(max_abs, max_abs_b256),
-        "ms": k1_ms,
-        "plain_ms": plain_ms,
-    }]
+    kernels = [
+        {
+            "name": "flash_attention_packed",
+            "route": "cuda",
+            "source": "clip_retrieval_tpu_torch/csrc/flash_packed.cu",
+            "replaces": "clip_retrieval_tpu/ops/flash.py:191",
+            "launches": launches + served_counts["k1"],
+            "launches_by_path": {"inference": launches, "serving": served_counts["k1"]},
+            "max_abs_err": max(max_abs, max_abs_b256),
+            "ms": k1_ms,
+            "plain_ms": plain_ms,
+        },
+        {
+            "name": "int8_gather_scan",
+            "route": "cuda",
+            "source": "clip_retrieval_tpu_torch/csrc/int8_scan.cu",
+            "replaces": "clip_retrieval_tpu/ops/int8scan.py:130",
+            "launches": served_counts["k3"],
+            "launches_by_path": {"inference": 0, "serving": served_counts["k3"]},
+            "max_abs_err": max(k3_err, k3_err_served),
+            "ms": k3_ms,
+            "plain_ms": k3_plain_ms,
+        },
+    ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(run())
+    code = run()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    # the server and micro-batcher threads are daemons that hold CUDA work;
+    # end the process without the interpreter's teardown racing them
+    os._exit(code)

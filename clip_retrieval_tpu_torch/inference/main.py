@@ -12,9 +12,9 @@ import math
 
 from clip_retrieval_tpu.utils.braces import braceexpand
 
+from ..utils.device import resolve_device
 from .distributor import make_distributor
 from .logger import LoggerReader
-from .mapper import resolve_device
 from .reader import folder_to_keys
 
 

@@ -26,20 +26,10 @@ import torch
 
 from ..models import clip as tclip
 from ..models import zoo
+from ..utils.device import resolve_device
 from .staging import STAGED_KEY
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-def resolve_device(device: str | torch.device) -> torch.device:
-    """The device to run on; raises for CUDA when no GPU is visible (there
-    is no silent CPU fallback)."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device={str(device)!r} but torch.cuda.is_available() is False; pass device='cpu' to run on the CPU"
-        )
-    return device
 
 
 class ClipMapper:

@@ -42,7 +42,7 @@ class LayerNorm(nn.Module):
         return y.to(x.dtype)
 
 
-def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ w with w cast to x's dtype, accumulated and returned in f32
     (JAX's `preferred_element_type=float32`)."""
     w = w.to(x.dtype)
@@ -54,7 +54,7 @@ def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
-    y = _matmul_f32(x, w)
+    y = matmul_f32(x, w)
     if b is not None:
         y = y + b.float()
     return y.to(x.dtype)
@@ -145,14 +145,14 @@ class VisionTransformer(nn.Module):
         b = x.shape[0]
         # im2col patchify: (B, g, P, g, P, 3) → (B, g*g, P*P*3), then one matmul
         x = x.reshape(b, g, p_sz, g, p_sz, 3).permute(0, 1, 3, 2, 4, 5).reshape(b, g * g, p_sz * p_sz * 3)
-        x = _matmul_f32(x, self.patch_embed.kernel.reshape(-1, w)).to(x.dtype)
+        x = matmul_f32(x, self.patch_embed.kernel.reshape(-1, w)).to(x.dtype)
         cls = self.class_emb.to(x.dtype).expand(b, 1, w)
         x = torch.cat([cls, x], dim=1) + self.pos_emb.to(x.dtype)
         x = self.ln_pre(x, cfg.layernorm_eps)
         for blk in self.blocks:
             x = blk(x)
         x = self.ln_post(x[:, 0], cfg.layernorm_eps)
-        return _matmul_f32(x, self.proj)
+        return matmul_f32(x, self.proj)
 
 
 class TextTransformer(nn.Module):
@@ -176,7 +176,7 @@ class TextTransformer(nn.Module):
         x = self.ln_final(x, self.cfg.layernorm_eps)
         eot = torch.argmax(tokens, dim=-1)
         x = x[torch.arange(x.shape[0], device=x.device), eot]
-        return _matmul_f32(x, self.proj)
+        return matmul_f32(x, self.proj)
 
 
 class CLIP(nn.Module):

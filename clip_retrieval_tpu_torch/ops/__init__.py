@@ -1,1 +1,2 @@
-"""Device ops: attention dispatch and the hand-written CUDA kernels."""
+"""Device ops: attention dispatch, top-k and int8 search ops, and the
+hand-written CUDA kernels."""

@@ -6,8 +6,10 @@ hash covers the sources, the nvcc flags and `nvcc --version`.  The kernels
 build only from a checkout (a directory holding `pyproject.toml` above the
 package); an installed copy of the package refuses to build rather than
 write beside site-packages.  A source with a plain C interface builds in
-seconds; nothing includes PyTorch's headers.  Nothing here runs at import
-time: the CPU tests import every module.
+seconds; nothing includes PyTorch's headers.  Each library has its own lock,
+so different libraries build in parallel when called from several threads
+(`build_all`).  Nothing here runs at import time: the CPU tests import every
+module.
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
-_LOCK = threading.Lock()
+_LOCK = threading.Lock()  # guards _NAME_LOCKS
+_NAME_LOCKS: dict[str, threading.Lock] = {}
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 
@@ -55,6 +58,8 @@ def load_library(name: str, sources: list[str]) -> ctypes.CDLL:
     """Compile `sources` (file names under csrc/) into lib<name>.so once and
     load it.  Raises with nvcc's output when the build fails."""
     with _LOCK:
+        name_lock = _NAME_LOCKS.setdefault(name, threading.Lock())
+    with name_lock:
         if name in _LIBS:
             return _LIBS[name]
         if not (CHECKOUT / "pyproject.toml").exists():
@@ -75,3 +80,23 @@ def load_library(name: str, sources: list[str]) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(so_path))
         _LIBS[name] = lib
         return lib
+
+
+def build_all() -> dict[str, float]:
+    """Build every kernel library of the package at once, one nvcc per
+    source started together; returns each library's build seconds.  Raises
+    the first failure after all builds have ended."""
+    import time
+    from concurrent.futures import ThreadPoolExecutor
+
+    from . import flash, int8scan
+
+    def timed(build):
+        t0 = time.perf_counter()
+        build()
+        return time.perf_counter() - t0
+
+    builders = {"flash_packed": flash.build, "int8_scan": int8scan.build}
+    with ThreadPoolExecutor(len(builders)) as pool:
+        futures = {name: pool.submit(timed, fn) for name, fn in builders.items()}
+        return {name: f.result() for name, f in futures.items()}

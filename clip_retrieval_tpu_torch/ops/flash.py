@@ -11,9 +11,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
+_LAUNCH_LOCK = threading.Lock()
 _LIB_NAME = "flash_packed"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
@@ -105,7 +107,8 @@ def flash_attention_packed(
     if rc != 0:
         msg = lib.crt_cuda_error_string(rc).decode()
         raise RuntimeError(f"flash_packed kernel launch failed ({rc}: {msg}) at B={b} S={s} heads={heads} dh={dh}")
-    flash_attention_packed.launches += 1
+    with _LAUNCH_LOCK:  # wrappers run on several server threads at once
+        flash_attention_packed.launches += 1
     return out
 
 

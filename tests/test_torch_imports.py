@@ -67,6 +67,28 @@ def test_main_default_device_raises_before_work(monkeypatch, tmp_path):
     assert not (tmp_path / "out").exists()
 
 
+def test_serving_entry_points_default_device_raises_without_cuda(monkeypatch, tmp_path):
+    from clip_retrieval_tpu_torch.back.app import clip_back
+    from clip_retrieval_tpu_torch.back.knn import KnnService
+    from clip_retrieval_tpu_torch.index.store import load_index
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        clip_back(indices_paths=str(tmp_path / "missing.json"), clip_model="test-tiny")
+    with pytest.raises(RuntimeError, match="is_available"):
+        load_index(str(tmp_path / "missing_index"))
+    with pytest.raises(RuntimeError, match="is_available"):
+        KnnService({})
+
+
+def test_cli_back_help(capsys):
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["back", "--help"])
+    assert exc.value.code == 0
+    out = capsys.readouterr().out
+    assert "--indices_paths" in out and "--device" in out and "--clip_model" in out
+
+
 def test_cli_inference_on_cpu(tmp_path):
     dataset = make_files_corpus(str(tmp_path / "c"), n=5)
     out = tmp_path / "out"
