@@ -3,9 +3,9 @@
 
 Run from the root of a checkout: `python3 chip_smoke.py`.  It builds every
 CUDA kernel of the port from `clip_retrieval_tpu_torch/csrc/` (one nvcc per
-source, in parallel), checks each against its plain PyTorch version on the
-card, and drives the port's two main paths at ViT-L/14 (full width, random
-weights from `init_clip`):
+source, in parallel) and the host C++ ADC scanner, checks each kernel against
+its plain PyTorch version on the card, and drives the port's paths at
+ViT-L/14 (full width, random weights from `init_clip`):
 
 - embedding inference: the `inference` entry point, bf16, batch 256, image
   and text towers; the embeddings are checked, the bf16 kernel path is
@@ -18,15 +18,28 @@ weights from `init_clip`):
   dedup and metadata requests over HTTP, serially and from 32 concurrent
   clients; recall@40 of the served answers is held to an exhaustive scan by
   kernel K3's plain version, and K3, search batches, HTTP latency and QPS
-  are timed.
+  are timed;
+- the unpacked attention entry `ops/attention.py::sdpa` (kernel K2) at the
+  image tower's attention shape, timed beside its plain version and
+  `F.scaled_dot_product_attention`;
+- index build: the `index` entry point (`clip_index`) over a 1,000,000 x 768
+  fp16 corpus in the `inference` writer's layout (4 shards + caption
+  parquets) with key OPQ64,IVF1024,PQ64,RFlat, nprobe calibrated to
+  recall@10 >= 0.95 (kernel K4 scores the calibration and recall searches);
+  the built folder is served by the same `back` entry point as a second
+  index (64 serial stored-row queries, a text query, 32 concurrent clients;
+  each stored row whose own list is among the probed ones comes back first),
+  its served recall@40 held to an exact fp16 brute force, K4's device route
+  held to the host C++ scan, and K4 and search batches timed.
 
 Phases, each of which stops the script with a non-zero exit when it fails:
-device, build, K1 vs plain, K3 vs plain, main path, tower parity, times,
-index, served path, recall, query times.  Kernel launch counts are set to 0
-just before each main path and read just after it.  The line before the
-last is a JSON object describing each kernel; the last line is
-`{"ok": true, "device": {...}}`.  Without a CUDA device, or without the
-package beside it, the script exits non-zero and prints no result.
+device, build, K1 vs plain, K3 vs plain, K2 vs plain, K4 vs plain, main
+path, tower parity, times, sdpa path, index build, index, served path,
+recall, query times, IVF-PQ checks.  Kernel launch counts are set to 0 just
+before each path and read just after it.  The line before the last is a JSON
+object describing each kernel; the last line is `{"ok": true, "device":
+{...}}`.  Without a CUDA device, or without the package beside it, the
+script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -65,6 +78,14 @@ N_QUERIES = 64  # stored rows queried with their f32 originals
 CLIENTS = 32
 MIN_RECALL = 0.95
 GEN_BLOCK = 1 << 20  # rows generated per block on the card
+# the index-build path: `clip_index` over a corpus at ViT-L/14's width, not reduced
+PQ_ROWS, PQ_SHARDS, PQ_CENTRES = 1_000_000, 4, 4096
+PQ_KEY = "OPQ64,IVF1024,PQ64,RFlat"
+PQ_INDEX = "pq1m"
+PQ_MIN_RECALL, PQ_MIN_OVERLAP, PQ_SCORE_TOL = 0.90, 0.99, 1e-4
+K4_MS, K4_BS = (8, 64, 96, 192, 256), (1, 3, 32, 128)
+# the card's published peaks (H100 SXM data sheet): HBM bytes/s, dense bf16 FLOP/s, SMs
+HBM_BPS, BF16_FLOPS, SMS = 3.35e12, 989e12, 132
 
 
 class PhaseError(Exception):
@@ -102,27 +123,32 @@ def min_row_cos(a, b) -> float:
     return torch.nn.functional.cosine_similarity(a.float(), b.float(), dim=-1).min().item()
 
 
-def check_k1(flash, q, k, v, heads: int, causal: bool) -> float:
-    """One K1 call against its plain version (f32, same inputs); fails on a
-    miss of the bars and returns the max abs error."""
+def check_attention(name: str, got, ref, dh: int, where: str) -> float:
+    """An attention kernel's output against its plain version's (f32, same
+    inputs): finite, and bf16 max abs ≤ 2e-2 with min row cosine ≥ 0.9999,
+    or f32 max abs ≤ 1e-4.  Returns the max abs error."""
     import torch
 
-    b, s, w = q.shape
-    dh = w // heads
-    got = flash.flash_attention_packed(q, k, v, heads, causal=causal)
-    ref = flash.flash_attention_packed_reference(q.float(), k.float(), v.float(), heads, causal=causal)
     torch.cuda.synchronize()
     err = (got.float() - ref).abs().max().item()
     cos = min_row_cos(got.reshape(-1, dh), ref.reshape(-1, dh))
     finite = bool(torch.isfinite(got).all())
-    where = f"{str(q.dtype).split('.')[-1]} B={b} heads={heads} dh={dh} S={s} causal={causal}"
-    print(f"  K1 {where}: max_abs={err:.3e} min_cos={cos:.7f} finite={finite}")
-    check(finite, f"K1 non-finite output at {where}")
-    if q.dtype == torch.bfloat16:
-        check(err <= BF16_MAX_ABS and cos >= BF16_MIN_COS, f"K1 bf16 off at {where}")
+    print(f"  {name} {where}: max_abs={err:.3e} min_cos={cos:.7f} finite={finite}")
+    check(finite, f"{name} non-finite output at {where}")
+    if got.dtype == torch.bfloat16:
+        check(err <= BF16_MAX_ABS and cos >= BF16_MIN_COS, f"{name} bf16 off at {where}")
     else:
-        check(err <= F32_MAX_ABS, f"K1 f32 off at {where}")
+        check(err <= F32_MAX_ABS, f"{name} f32 off at {where}")
     return err
+
+
+def check_k1(flash, q, k, v, heads: int, causal: bool) -> float:
+    """One K1 call against its plain version; returns the max abs error."""
+    b, s, w = q.shape
+    got = flash.flash_attention_packed(q, k, v, heads, causal=causal)
+    ref = flash.flash_attention_packed_reference(q.float(), k.float(), v.float(), heads, causal=causal)
+    where = f"{str(q.dtype).split('.')[-1]} B={b} heads={heads} dh={w // heads} S={s} causal={causal}"
+    return check_attention("K1", got, ref, w // heads, where)
 
 
 def phase_kernels(flash) -> float:
@@ -142,6 +168,86 @@ def phase_kernels(flash) -> float:
     return worst_bf16
 
 
+def check_k2(flash, q, k, v, causal: bool) -> float:
+    """One K2 call against its plain version; returns the max abs error."""
+    b, h, sq, dh = q.shape
+    got = flash.flash_attention(q, k, v, causal=causal)
+    ref = flash.flash_attention_reference(q.float(), k.float(), v.float(), causal=causal)
+    where = f"{str(q.dtype).split('.')[-1]} B={b} H={h} Sq={sq} Sk={k.shape[2]} dh={dh} causal={causal}"
+    return check_attention("K2", got, ref, dh, where)
+
+
+def phase_k2(flash) -> float:
+    """K2 against its plain version on the card at every tower geometry in the
+    (B, H, S, dh) layout, bf16 and f32, causal and not, plus Sq != Sk; B=4.
+    Returns the worst bf16 max abs error."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    shapes = [(heads, dh, s, s) for heads, dh, s, _ in GEOMETRIES] + [(16, 64, 257, 77), (12, 64, 50, 300)]
+    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    for dtype in worst:
+        for heads, dh, sq, sk in shapes:
+            for causal in (False, True):
+                q = torch.randn(4, heads, sq, dh, generator=gen, device="cuda").to(dtype)
+                k, v = (torch.randn(4, heads, sk, dh, generator=gen, device="cuda").to(dtype) for _ in range(2))
+                worst[dtype] = max(worst[dtype], check_k2(flash, q, k, v, causal))
+    print(f"  K2 vs plain: {2 * len(shapes)} shapes x bf16/f32 (every tower geometry causal and not, Sq != Sk "
+          f"257/77 and 50/300): bf16 max abs {worst[torch.bfloat16]:.3e} (bar {BF16_MAX_ABS}), f32 max abs "
+          f"{worst[torch.float32]:.3e} (bar {F32_MAX_ABS})")
+    return worst[torch.bfloat16]
+
+
+def check_k4(adc, args) -> float:
+    """K4 against its plain version on the same inputs: bit-identical, equal
+    -inf sets.  Returns the max abs difference of the finite entries (0.0)."""
+    import torch
+
+    got = adc.adc_scan(*args)
+    ref = adc.adc_scan_reference(*args)
+    torch.cuda.synchronize()
+    where = f"M={args[0].shape[1]} B={args[1].shape[0]} NC={args[2].shape[0]}"
+    check(got.shape == ref.shape, f"K4 shape {tuple(got.shape)} vs {tuple(ref.shape)} at {where}")
+    check(torch.equal(torch.isneginf(got), torch.isneginf(ref)), f"K4 -inf set differs at {where}")
+    fin = torch.isfinite(ref)
+    err = (got[fin] - ref[fin]).abs().max().item() if bool(fin.any()) else 0.0
+    check(torch.equal(got, ref), f"K4 not bit-identical to its plain version at {where} (max abs {err:.3e})")
+    return err
+
+
+def phase_k4(adc) -> float:
+    """K4 against its plain version at M in {8, 64, 96, 192, 256} x B in
+    {1, 3, 32, 128}, C = 128: a short worklist with nvalid 0, partial and
+    full chunks, repeated blocks and owners out of order, and a long one
+    ordered by owner (the served layout, 16-chunk runs per block)."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    nblocks, c, worst, n = 16, adc.CHUNK, 0.0, 0
+    i32 = dict(dtype=torch.int32, device="cuda")
+    for m in K4_MS:
+        codes = torch.randint(0, 256, (nblocks * c, m), generator=gen, device="cuda", dtype=torch.uint8)
+        for b in K4_BS:
+            lut = torch.randn(b, m, 256, generator=gen, device="cuda")
+            short = (torch.tensor([0, 3, 3, nblocks - 1, 1, 0, 2, 5, 5, 6], **i32),
+                     torch.tensor([c, 0, 77, c, 1, c, 50, c, 0, c - 1], **i32),
+                     torch.tensor([0, 0, 1, 1, 2, 2, 0, 3, 1, 0], **i32) % b)
+            nc = 5000
+            long = (torch.randint(0, nblocks, (nc,), generator=gen, **i32),
+                    torch.randint(0, c + 1, (nc,), generator=gen, **i32),
+                    (torch.arange(nc, device="cuda") * b // nc).int())
+            for blocks, nvalid, owner in (short, long):
+                coarse = torch.randn(blocks.shape[0], generator=gen, device="cuda")
+                worst = max(worst, check_k4(adc, (codes, lut, blocks, nvalid, owner, coarse)))
+                n += 1
+    print(f"  K4 vs plain: {n} worklists (M {'/'.join(map(str, K4_MS))} x B {'/'.join(map(str, K4_BS))} x "
+          f"(10 chunks: nvalid 0/partial/full, repeated blocks; 5000 chunks ordered by owner)) bit-identical; "
+          f"max abs err {worst}")
+    return worst
+
+
 def write_corpus(folder: str):
     from PIL import Image
 
@@ -154,10 +260,10 @@ def write_corpus(folder: str):
             f.write(f"a photo of sample number {i}, seed {int(rng.integers(1 << 20))}")
 
 
-def phase_main_path(flash, int8scan, gpu: str) -> int:
+def phase_main_path(kernels: dict, gpu: str) -> dict:
     """The `inference` entry point over 512 JPEG+caption samples at
-    ViT-L/14 bf16 b256; returns K1's launch count in that run (K3 is not on
-    this path and must not launch)."""
+    ViT-L/14 bf16 b256; returns the launch counts of that run (only K1 is on
+    this path)."""
     from clip_retrieval_tpu_torch.inference.main import main as clip_inference
 
     shutil.rmtree(WORK_DIR, ignore_errors=True)
@@ -166,15 +272,15 @@ def phase_main_path(flash, int8scan, gpu: str) -> int:
     for mod in ("pandas", "pyarrow"):
         check(importlib.util.find_spec(mod) is not None, f"{mod} is needed to write the parquet metadata")
     write_corpus(corpus)
-    flash.flash_attention_packed.launches = 0
-    int8scan.int8_gather_scan.launches = 0
+    zero_counts(kernels)
     t0 = time.perf_counter()
     clip_inference(
         input_dataset=corpus, output_folder=out, batch_size=BATCH, num_prepro_workers=8, clip_model=MODEL,
         device="cuda",
     )
     wall = time.perf_counter() - t0
-    launches = flash.flash_attention_packed.launches
+    counts = read_counts(kernels)
+    launches = counts["k1"]
     print(f"  [{gpu}] main path wall {wall:.2f} s on the host clock, 2 batches, including model init and "
           f"JPEG decode; K1 launches {launches}")
     for sub, name in (("img_emb", "img_emb_0.npy"), ("text_emb", "text_emb_0.npy")):
@@ -193,8 +299,8 @@ def phase_main_path(flash, int8scan, gpu: str) -> int:
     check(stats.get("sample_count") == SAMPLES, f"stats count {stats.get('sample_count')}")
     expected = 2 * (24 + 12)  # 2 batches x (vision + text layers)
     check(launches == expected, f"K1 launched {launches} times on the main path, expected {expected}")
-    check(int8scan.int8_gather_scan.launches == 0, "K3 launched on the embedding path")
-    return launches
+    check(counts["k2"] == counts["k3"] == counts["k4"] == 0, f"another kernel launched on the embedding path: {counts}")
+    return counts
 
 
 def phase_parity(mapper, gpu: str):
@@ -227,12 +333,12 @@ def phase_parity(mapper, gpu: str):
     check(cos_f32 >= 0.9999, "f32 kernel path disagrees with the f32 plain path")
 
 
-def phase_times(flash, mapper, gpu: str) -> tuple[float, float, float]:
+def phase_times(flash, mapper, gpu: str) -> tuple[float, float, float, float]:
     """Mapper samples/s on device-resident inputs, and K1 against its plain
     version at the main path's two attention shapes in bf16: checked against
     the plain version's output with the bars of phase_kernels, then timed.
-    Returns (K1 ms, plain ms) at the image tower's (256, 257, 16x64) and the
-    worst max abs error of the two checks."""
+    Returns (K1 ms, plain ms, SDPA ms) at the image tower's (256, 257, 16x64)
+    and the worst max abs error of the two checks."""
     import torch
     import torch.nn.functional as F
 
@@ -289,8 +395,66 @@ def phase_times(flash, mapper, gpu: str) -> tuple[float, float, float]:
         print(f"  [{gpu}] K1 ({BATCH}, {s}, {heads}x{dh}{', causal' if causal else ''}) bf16: {k1_ms:.4f} ms/call "
               f"(runs {times['K1']}); plain version {plain_ms:.4f} ms/call (runs {times['plain']}); yardstick "
               f"F.scaled_dot_product_attention on (B,H,S,dh) {sdpa_ms:.4f} ms/call (not on the path)")
-        results.append((k1_ms, plain_ms))
+        results.append((k1_ms, plain_ms, sdpa_ms))
     return (*results[0], worst)
+
+
+def attention_bound_ms(b: int, h: int, sq: int, sk: int, dh: int, itemsize: int) -> tuple[float, str]:
+    """Least time of one attention call on this card: q, k, v read and o
+    written once over the HBM rate against 4·B·H·Sq·Sk·dh MMA FLOPs over the
+    dense bf16 peak; (ms, what bounds it)."""
+    t_bytes = (2 * b * h * sq * dh + 2 * b * h * sk * dh) * itemsize / HBM_BPS
+    t_ops = 4 * b * h * sq * sk * dh / BF16_FLOPS
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def zero_counts(kernels: dict):
+    for fn in kernels.values():
+        fn.launches = 0
+
+
+def read_counts(kernels: dict) -> dict:
+    return {name: fn.launches for name, fn in kernels.items()}
+
+
+def phase_sdpa(flash, kernels: dict, gpu: str) -> tuple[dict, float, float, float, float]:
+    """The unpacked `sdpa` entry (impl 'auto') on (256, 16, 257, 64) bf16, the
+    image tower's attention shape: it must run through K2 and only K2; then
+    K2 against its plain version (K1's bars) and timed beside it and
+    `F.scaled_dot_product_attention` (not on the path).  Returns (launch
+    counts of the path, K2 ms, plain ms, SDPA ms, max abs err)."""
+    import torch
+    import torch.nn.functional as F
+
+    from clip_retrieval_tpu_torch.ops.attention import sdpa
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    q, k, v = (torch.randn(BATCH, 16, 257, 64, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(3))
+    zero_counts(kernels)
+    out = sdpa(q, k, v)
+    torch.cuda.synchronize()
+    counts = read_counts(kernels)
+    check(counts == {"k1": 0, "k2": 1, "k3": 0, "k4": 0}, f"sdpa launched {counts}, expected K2 once")
+    ref = flash.flash_attention_reference(q.float(), k.float(), v.float())
+    err = (out.float() - ref).abs().max().item()
+    check(err <= BF16_MAX_ABS, f"sdpa output off by {err:.3e}")
+    err = max(err, check_k2(flash, q, k, v, causal=False))
+    kern = lambda: flash.flash_attention(q, k, v)
+    plain = lambda: flash.flash_attention_reference(q, k, v)
+    lib = lambda: F.scaled_dot_product_attention(q, k, v)
+    for fn in (kern, plain, lib):  # warm up; SDPA's first calls pick a backend
+        for _ in range(3):
+            fn()
+    times: dict[str, list[float]] = {"K2": [], "plain": []}
+    for name, fn in (("plain", plain), ("K2", kern), ("K2", kern), ("plain", plain)):
+        times[name].append(cuda_ms(fn, 20))
+    k2_ms, plain_ms, lib_ms = float(np.mean(times["K2"])), float(np.mean(times["plain"])), cuda_ms(lib, 20)
+    bound, by = attention_bound_ms(BATCH, 16, 257, 257, 64, 2)
+    print(f"  [{gpu}] sdpa (impl auto) on ({BATCH}, 16, 257, 64) bf16: K2 launches {counts['k2']}, max abs "
+          f"{err:.3e}; K2 {k2_ms:.4f} ms/call (runs {times['K2']}); plain version {plain_ms:.4f} ms/call (runs "
+          f"{times['plain']}); F.scaled_dot_product_attention {lib_ms:.4f} ms/call; bound {bound:.4f} ms ({by})")
+    return counts, k2_ms, plain_ms, lib_ms, err
 
 
 # --------------------------------------------------------------------------
@@ -346,13 +510,13 @@ def phase_k3(int8scan) -> float:
     return worst
 
 
-def phase_index(gpu: str):
+def phase_index(gpu: str, other_indices: dict):
     """Generate the synthetic 10M x 768 IVF-int8 index on the card
     (list-grouped by construction: random unit centroids, seeded multinomial
     list sizes, rows normalize(c_l + 0.75·g/√d)), quantize it with
     `quantize_rows_device`, save it with a `caption` parquet and
-    indices_paths.json.  Returns (index on the card, ids of the queried
-    rows, their f32 originals)."""
+    indices_paths.json (with `other_indices` beside it).  Returns (index on
+    the card, ids of the queried rows, their f32 originals)."""
     import pyarrow as pa
     import pyarrow.compute as pc
     import pyarrow.parquet as pq
@@ -396,7 +560,7 @@ def phase_index(gpu: str):
     captions = pc.binary_join_element_wise("row", pc.cast(pa.array(np.arange(N_ROWS)), pa.string()), " ")
     pq.write_table(pa.table({"caption": captions}), os.path.join(folder, "metadata", "metadata_0.parquet"))
     with open(os.path.join(WORK_DIR, "indices_paths.json"), "w") as f:
-        json.dump({INDEX_NAME: folder}, f)
+        json.dump({INDEX_NAME: folder, **other_indices}, f)
     t_save = time.perf_counter() - t0 - t_gen
     index._ensure_device()
     torch.cuda.synchronize()
@@ -408,6 +572,104 @@ def phase_index(gpu: str):
           f"device image in {time.perf_counter() - t0 - t_gen - t_save:.1f} s")
     check(rows.shape[1] == 256, f"Lc {rows.shape[1]}, expected 256")
     return index, list_ids[sample_pos], originals
+
+
+def phase_pq_corpus(gpu: str) -> tuple[str, np.ndarray]:
+    """Write the index-build corpus in the `inference` writer's layout:
+    img_emb/img_emb_{0..3}.npy (fp16) and metadata/metadata_{0..3}.parquet
+    (image_path, caption).  Rows are generated on the card from a seed:
+    PQ_CENTRES random unit centres, rows normalize(c + 0.75·g/√d).  Returns
+    (folder, the rows in host memory)."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    import torch
+
+    t0 = time.perf_counter()
+    folder = os.path.join(WORK_DIR, "pq_corpus")
+    for sub in ("img_emb", "metadata"):
+        os.makedirs(os.path.join(folder, sub))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    cent = torch.randn(PQ_CENTRES, DIM, generator=gen, device="cuda")
+    cent /= cent.norm(dim=1, keepdim=True)
+    rows = np.empty((PQ_ROWS, DIM), np.float16)
+    per = PQ_ROWS // PQ_SHARDS
+    for s in range(PQ_SHARDS):
+        a, b = s * per, PQ_ROWS if s == PQ_SHARDS - 1 else (s + 1) * per
+        owner = torch.randint(0, PQ_CENTRES, (b - a,), generator=gen, device="cuda")
+        x = cent[owner] + (0.75 / math.sqrt(DIM)) * torch.randn(b - a, DIM, generator=gen, device="cuda")
+        rows[a:b] = (x / x.norm(dim=1, keepdim=True)).half().cpu().numpy()
+        np.save(os.path.join(folder, "img_emb", f"img_emb_{s}.npy"), rows[a:b])
+        pq.write_table(pa.table({"image_path": [f"{i}.jpg" for i in range(a, b)],
+                                 "caption": [f"row {i}" for i in range(a, b)]}),
+                       os.path.join(folder, "metadata", f"metadata_{s}.parquet"))
+    print(f"  [{gpu}] index-build corpus: {PQ_ROWS} x {DIM} fp16 in {PQ_SHARDS} shards + caption parquets, "
+          f"{PQ_CENTRES} centres, written in {time.perf_counter() - t0:.1f} s")
+    return folder, rows
+
+
+def phase_pq_build(corpus: str, kernels: dict, gpu: str) -> tuple[str, dict]:
+    """The `index` entry point (`clip_index`) over the corpus with PQ_KEY,
+    nprobe calibrated (recall@10 >= 0.95 against an exact brute force on the
+    card) and recall scored; K4 scores every calibration and recall search,
+    and no other kernel runs.  Returns (index folder, launch counts)."""
+    from clip_retrieval_tpu_torch.index.build import clip_index
+
+    folder = os.path.join(WORK_DIR, "pq_index")
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    clip_index(corpus, folder, index_key=PQ_KEY, nprobe=None, compute_recall=True, device="cuda")
+    wall = time.perf_counter() - t0
+    counts = read_counts(kernels)
+    with open(os.path.join(folder, "image.json")) as f:
+        infos = json.load(f)
+    with open(os.path.join(folder, "image.index", "header.json")) as f:
+        header = json.load(f)
+    cal = header["calibration"]
+    print(f"  [{gpu}] clip_index {PQ_KEY} over {PQ_ROWS} x {DIM}: train_s {infos['train_s']}, encode_s "
+          f"{infos['encode_s']}, build_seconds {infos['build_seconds']:.1f} (wall {wall:.1f} s with save and "
+          f"recall); calibrated nprobe {header['nprobe']}, rerank_factor {header['rerank_factor']}, recall@10 "
+          f"{cal['recall_achieved']} (curve {cal['recall_curve']}, rerank curve {cal.get('rerank_curve')}); "
+          f"recall@40 {infos['recall@40']:.4f} ({infos['n_queries']} queries); launches {counts}")
+    check(not cal["target_missed"], f"nprobe calibration missed its target: {cal}")
+    check(counts["k4"] > 0, "K4 did not launch on the index path")
+    check(counts["k1"] == counts["k2"] == counts["k3"] == 0, f"another kernel launched on the index path: {counts}")
+    check(os.path.exists(os.path.join(folder, "metadata", "metadata_0.parquet")), "metadata was not copied")
+    return folder, counts
+
+
+def phase_pq_probe(folder: str, pq_rows, pq_ids, gpu: str) -> np.ndarray:
+    """Which of the queried stored rows have their own list (the one the
+    build filed them in, argmax x·c − ½‖c‖²) among the lists the index probes
+    for them (its top-nprobe by q·c, on the device route's ops).  Only those
+    rows can come back first.  Prints the rank of each row's own list under
+    both rules and the centroids' norms; returns the (N_QUERIES,) mask."""
+    import torch
+
+    from clip_retrieval_tpu_torch.index.flat import to_device
+    from clip_retrieval_tpu_torch.index.ivfpq import IVFPQIndex, probe
+
+    ix = IVFPQIndex.load(os.path.join(folder, "image.index"), device="cuda")
+    nprobe = min(ix.nprobe, ix.nlist)
+    own = np.searchsorted(ix.list_offsets, ix._positions(pq_ids), side="right") - 1
+    coarse = to_device(ix.coarse_centroids, ix.device)
+    qr = to_device(pq_rows[pq_ids].astype(np.float32), ix.device)
+    if ix.rotation is not None:
+        qr = qr @ to_device(ix.rotation, ix.device)
+    _, probe_idx = probe(qr, coarse, nprobe)
+    probed = (probe_idx.cpu().numpy() == own[:, None]).any(axis=1)
+    scores = qr @ coarse.T
+    fill = scores - 0.5 * (coarse * coarse).sum(1)
+    own_t = torch.from_numpy(own).to(ix.device)[:, None]
+    rank_qc = (scores > scores.gather(1, own_t)).sum(1).cpu().numpy()
+    rank_fill = (fill > fill.gather(1, own_t)).sum(1).cpu().numpy()
+    norms = np.linalg.norm(ix.coarse_centroids, axis=1)
+    print(f"  [{gpu}] {PQ_INDEX} probe reading: {int(probed.sum())}/{len(pq_ids)} queried rows have their own list "
+          f"among the {nprobe} probed by q·c; rank of the own list by q·c: median {int(np.median(rank_qc))}, max "
+          f"{int(rank_qc.max())}, >= nprobe for {int((rank_qc >= nprobe).sum())}; by the filing rule "
+          f"x·c - ½‖c‖²: max {int(rank_fill.max())}; centroid norms min/p5/p50/p95/max "
+          f"{'/'.join(f'{v:.3f}' for v in np.percentile(norms, [0, 5, 50, 95, 100]))}")
+    return probed
 
 
 def free_port() -> int:
@@ -430,9 +692,9 @@ def http_json(port: int, method: str, path: str, body=None, timeout: float = 300
         conn.close()
 
 
-def knn(port: int, **body):
+def knn(port: int, index: str = INDEX_NAME, **body):
     status, res = http_json(port, "POST", "/knn-service",
-                            {"modality": "image", "num_images": TOPK, "indice_name": INDEX_NAME, **body})
+                            {"modality": "image", "num_images": TOPK, "indice_name": index, **body})
     check(status == 200, f"/knn-service answered {status}: {str(res)[:300]}")
     return res
 
@@ -454,10 +716,12 @@ def jpeg_b64(seed: int) -> str:
     return base64.b64encode(buf.getvalue()).decode()
 
 
-def concurrent_embedding_queries(port: int, queries, ids, per_client: int = 1) -> float:
+def concurrent_embedding_queries(port: int, queries, ids, per_client: int = 1, index: str = INDEX_NAME,
+                                 first=None) -> float:
     """CLIENTS threads, released together, each sending `per_client`
-    embedding queries; every first result must be the queried row.  Returns
-    the wall seconds of the burst."""
+    embedding queries; the first result must be the queried row (for query j
+    where `first[j]`, every query when `first` is None).  Returns the wall
+    seconds of the burst."""
     barrier = threading.Barrier(CLIENTS + 1)
     errors: list[str] = []
 
@@ -466,8 +730,8 @@ def concurrent_embedding_queries(port: int, queries, ids, per_client: int = 1) -
         for r in range(per_client):
             j = (c + r * CLIENTS) % len(queries)
             try:
-                res = knn(port, embedding_input=queries[j].tolist())
-                if res[0]["id"] != int(ids[j]):
+                res = knn(port, index=index, embedding_input=queries[j].tolist())
+                if (first is None or first[j]) and res[0]["id"] != int(ids[j]):
                     errors.append(f"client {c}: first id {res[0]['id']} != {ids[j]}")
             except Exception as e:  # reported below
                 errors.append(f"client {c}: {e}")
@@ -484,10 +748,12 @@ def concurrent_embedding_queries(port: int, queries, ids, per_client: int = 1) -
     return wall
 
 
-def phase_serve(flash, int8scan, sample_ids, originals, gpu: str) -> tuple[dict, list]:
-    """The `back` entry point on the generated index, driven over HTTP.
-    Returns (launch counts of the path, served ids of the serial embedding
-    queries)."""
+def phase_serve(kernels: dict, sample_ids, originals, pq_rows, pq_ids, pq_probed, gpu: str) -> tuple[dict, list, list]:
+    """The `back` entry point on both generated indices, driven over HTTP.
+    On the IVF-PQ index, the stored rows whose own list is probed
+    (`pq_probed`) must come back first.  Returns (launch counts of the path,
+    served ids of the serial embedding queries on the IVF-int8 index, and on
+    the IVF-PQ index)."""
     from clip_retrieval_tpu_torch.back.app import clip_back
 
     port = free_port()
@@ -501,8 +767,7 @@ def phase_serve(flash, int8scan, sample_ids, originals, gpu: str) -> tuple[dict,
         except BaseException as e:  # reported by the poll below
             boot_error.append(e)
 
-    flash.flash_attention_packed.launches = 0
-    int8scan.int8_gather_scan.launches = 0
+    zero_counts(kernels)
     t0 = time.perf_counter()
     server = threading.Thread(target=boot, daemon=True, name="clip_back")
     server.start()
@@ -516,11 +781,10 @@ def phase_serve(flash, int8scan, sample_ids, originals, gpu: str) -> tuple[dict,
         check(time.perf_counter() - t0 < 600, "clip_back did not answer /health within 600 s")
         time.sleep(0.5)
     print(f"  [{gpu}] clip_back up in {time.perf_counter() - t0:.1f} s (model init, index load and device image, "
-          f"warm-up); launches during boot: K1 {flash.flash_attention_packed.launches}, "
-          f"K3 {int8scan.int8_gather_scan.launches}")
+          f"warm-up); launches during boot: {read_counts(kernels)}")
 
     def counts():
-        return flash.flash_attention_packed.launches, int8scan.int8_gather_scan.launches
+        return read_counts(kernels)["k1"], read_counts(kernels)["k3"]
 
     # (a) serial embedding queries: b=1 batches → the static route
     _, k3_0 = counts()
@@ -561,17 +825,18 @@ def phase_serve(flash, int8scan, sample_ids, originals, gpu: str) -> tuple[dict,
     check(status == 200 and [m["metadata"]["caption"] for m in metas] == [f"row {i}" for i in sample_ids[:5]],
           "/metadata answered badly")
     status, names = http_json(port, "GET", "/indices-list")
-    check(status == 200 and names == [INDEX_NAME], f"/indices-list answered {status} {names}")
+    check(status == 200 and names == [INDEX_NAME, PQ_INDEX], f"/indices-list answered {status} {names}")
     status, body = http_json(port, "GET", "/metrics")
     check(status == 200 and b"full_knn_request_time_count" in body, "/metrics answered badly")
     print("  (e) /metadata, /indices-list, /metrics: 200 and as expected")
     # (f) concurrent embedding queries: batches ≥ 2 → the exact route
     _, k3_e = counts()
-    max_batch = 0
+    max_batch, known = 0, set()
     for _ in range(3):
         concurrent_embedding_queries(port, originals, sample_ids)
         status, stats = http_json(port, "GET", "/serving-stats")
         check(status == 200, "/serving-stats failed")
+        known = set(stats["search"])
         sizes = [int(s) for key, row in stats["search"].items() if key.endswith(f"-k{TOPK}")
                  for s in row["batch_sizes"]]
         max_batch = max(sizes or [0])
@@ -582,9 +847,36 @@ def phase_serve(flash, int8scan, sample_ids, originals, gpu: str) -> tuple[dict,
     check(k3_f > k3_e, "K3 did not launch for the concurrent queries (exact route)")
     print(f"  (f) {CLIENTS} concurrent embedding queries: largest search batch {max_batch}; K3 launches "
           f"+{k3_f - k3_e}; search batch sizes {stats['search']}")
-    k1, k3 = counts()
-    print(f"  served path launches: K1 {k1}, K3 {k3}")
-    return {"k1": k1, "k3": k3, "port": port}, served
+    # (g) the IVF-PQ index: serial stored-row queries (B=1), each whose own list is probed returns its row first
+    k4_0 = read_counts(kernels)["k4"]
+    pq_served, pq_sims, n_first = [], [], 0
+    pq_queries = pq_rows[pq_ids].astype(np.float32)
+    for i, rid in enumerate(pq_ids):
+        res = knn(port, index=PQ_INDEX, embedding_input=pq_queries[i].tolist())
+        check_results(res, f"IVF-PQ embedding query {i}")
+        n_first += res[0]["id"] == int(rid)
+        check(res[0]["id"] == int(rid) or not pq_probed[i],
+              f"IVF-PQ query {i}: own list probed, first result {res[0]['id']}, expected {rid}")
+        pq_served.append([r["id"] for r in res])
+        pq_sims.append(res[0]["similarity"])
+    k4_g = read_counts(kernels)["k4"]
+    check(k4_g > k4_0, "K4 did not launch for the IVF-PQ serial queries")
+    print(f"  (g) {len(pq_ids)} serial stored-row queries on {PQ_INDEX}: {n_first} return the queried row first, "
+          f"every one of the {int(pq_probed.sum())} whose own list is probed; first similarity "
+          f"{min(pq_sims):.5f}..{max(pq_sims):.5f}; K4 launches +{k4_g - k4_0}")
+    # (h) a text query on the IVF-PQ index
+    check_results(knn(port, index=PQ_INDEX, text="a photo of the query on the IVF-PQ index"), "IVF-PQ text query")
+    # (i) 32 concurrent clients on the IVF-PQ index
+    concurrent_embedding_queries(port, pq_queries, pq_ids, index=PQ_INDEX, first=pq_probed)
+    status, stats = http_json(port, "GET", "/serving-stats")
+    pq_sizes = [int(s) for key, row in stats["search"].items() if key not in known for s in row["batch_sizes"]]
+    k4_i = read_counts(kernels)["k4"]
+    check(k4_i > k4_g, "K4 did not launch for the IVF-PQ text and concurrent queries")
+    print(f"  (h, i) text query and {CLIENTS} concurrent clients on {PQ_INDEX}: 200, the queried row first where "
+          f"its list is probed; largest search batch {max(pq_sizes or [0])}; K4 launches +{k4_i - k4_g}")
+    c = read_counts(kernels)
+    print(f"  served path launches: {c}")
+    return {**c, "port": port}, served, pq_served
 
 
 def phase_recall(index, int8scan, originals, served) -> float:
@@ -651,17 +943,17 @@ def profile_search(index, qb, iters: int = 10) -> float:
     return float(m.group(1)) * {"us": 1e-3, "ms": 1.0, "s": 1e3}[m.group(2)] / iters
 
 
-def phase_query_times(index, int8scan, originals, sample_ids, port: int, gpu: str) -> tuple[float, float, float]:
+def phase_query_times(index, int8scan, originals, sample_ids, port: int, gpu: str) -> tuple[float, ...]:
     """K3 vs plain at the served shape, search-batch p50 by route, HTTP p50
-    and QPS.  Returns (K3 ms, plain ms, K3 max abs err)."""
+    and QPS.  Returns (K3 ms, plain ms, K3 max abs err, K3 bound ms)."""
     import torch
 
-    from clip_retrieval_tpu_torch.index.ivf_int8 import _coarse_probe
+    from clip_retrieval_tpu_torch.index.ivf_int8 import select_probes
     from clip_retrieval_tpu_torch.ops.int8mm import quantize_rows_device
 
     dv = index._device
     q32 = torch.from_numpy(originals[:32]).cuda()
-    per_q = _coarse_probe(q32, dv["coarse"], NPROBE).cpu().numpy()
+    per_q = select_probes(q32 @ dv["coarse"].T, NPROBE).cpu().numpy()
     sel = torch.from_numpy(index._union_chunk_sel(per_q)).cuda()
     qq, qs = quantize_rows_device(q32)
     args = (qq, qs, dv["rows"], dv["scales"], dv["pos"], sel)
@@ -709,7 +1001,105 @@ def phase_query_times(index, int8scan, originals, sample_ids, port: int, gpu: st
     status, summary = http_json(port, "GET", "/metrics-summary")
     check(status == 200, "/metrics-summary failed")
     print(f"  [{gpu}] /metrics-summary over every request of this run:\n{summary.decode()}")
-    return k3_ms, plain_ms, err
+    return k3_ms, plain_ms, err, 1e3 * gbytes * 1e9 / HBM_BPS
+
+
+def clock_max_hz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()
+    return float(out[0]) * 1e6
+
+
+def phase_pq_checks(pq_folder: str, pq_rows, pq_ids, pq_served, adc, gpu: str) -> dict:
+    """The served IVF-PQ answers against an exact fp16 brute force on the
+    card (recall@40), K4's device route against the host C++ scan (top-40
+    overlap and scores), search-batch p50 at B=1 and B=32, and K4 against its
+    plain version at B=32 worklists with its bound.  Returns K4's numbers at
+    the served worklist for the kernels line."""
+    from clip_retrieval_tpu_torch.index.flat import FlatIndex, to_device
+    from clip_retrieval_tpu_torch.index.ivfpq import IVFPQIndex, _device_room
+
+    q = pq_rows[pq_ids].astype(np.float32)
+    _, truth = FlatIndex(DIM, vectors=pq_rows, device="cuda").search(q, TOPK)
+    recall = float(np.mean([len(set(s) & set(t.tolist())) / TOPK for s, t in zip(pq_served, truth)]))
+    print(f"  [{gpu}] {PQ_INDEX}: recall@{TOPK} of the {len(pq_served)} served stored-row queries vs the exact fp16 "
+          f"brute force on the card: {recall:.4f}")
+    check(recall >= PQ_MIN_RECALL, f"IVF-PQ served recall@{TOPK} {recall:.4f} < {PQ_MIN_RECALL}")
+
+    ix = IVFPQIndex.load(os.path.join(pq_folder, "image.index"), device="cuda")
+    nprobe = min(ix.nprobe, ix.nlist)
+    room = _device_room(ix.device)
+    check(ix._fits_device(), "the IVF-PQ codes did not fit the card's free memory")
+    print(f"  [{gpu}] {PQ_INDEX} codes image {ix._device_bytes() / 1e9:.3f} GB; the card's free memory less the "
+          f"scan's reserve {room / 1e9:.2f} GB when staged: device route")
+    dev_vals, dev_ids = ix._search_device(q, TOPK, nprobe)
+    host_vals, host_ids = ix._search_host(q, TOPK, nprobe)
+    overlaps, worst = [], 0.0
+    for dv_, di, hv, hi in zip(dev_vals, dev_ids, host_vals, host_ids):
+        shared = set(di.tolist()) & set(hi.tolist())
+        overlaps.append(len(shared) / TOPK)
+        d_of, h_of = dict(zip(di.tolist(), dv_.tolist())), dict(zip(hi.tolist(), hv.tolist()))
+        worst = max([worst, *(abs(d_of[i] - h_of[i]) for i in shared)])
+    print(f"  [{gpu}] {PQ_INDEX} ADC top-{TOPK} at nprobe {nprobe}, device (K4) vs host C++ scan: mean id overlap "
+          f"{np.mean(overlaps):.4f} (min {min(overlaps):.4f}), shared ids' scores within {worst:.3e}")
+    check(np.mean(overlaps) >= PQ_MIN_OVERLAP, f"device and host ADC overlap {np.mean(overlaps):.4f}")
+    check(worst <= PQ_SCORE_TOL, f"device and host ADC scores differ by {worst:.3e}")
+
+    for b in (1, 32):
+        p50, p90 = p50_ms(lambda: ix.search_and_reconstruct(q[:b], TOPK), 30)
+        print(f"  [{gpu}] {PQ_INDEX} search batch B={b} (search_and_reconstruct k={TOPK}, nprobe {nprobe}, "
+              f"rerank_factor {ix.rerank_factor}): p50 {p50:.3f} ms, p90 {p90:.3f} ms (host clock, 30 batches)")
+        busy = profile_search(ix, q[:b])
+        print(f"  [{gpu}] {PQ_INDEX} search batch B={b}: device busy {busy:.3f} ms per batch ({busy / p50:.3f} of the p50)")
+
+    # K4 at the B=32 worklist the device route gives this batch: at the served nprobe (the kernels line), and at
+    # nprobe 64 and 256, worklists of the size a 1M-row index gives when its lists are probed widely
+    qr = to_device(q[:32], ix.device)
+    if ix._ensure_device()["rotation"] is not None:
+        qr = qr @ ix._ensure_device()["rotation"]
+    timed = {np_: time_k4(ix, qr, np_, adc, gpu, "served" if np_ == nprobe else "wide")
+             for np_ in sorted({nprobe, min(64, ix.nlist), min(256, ix.nlist)})}
+    return {**timed[nprobe], "max_abs_err": max(t["max_abs_err"] for t in timed.values())}
+
+
+def time_k4(ix, qr, nprobe: int, adc, gpu: str, label: str) -> dict:
+    """K4 against its plain version (bit-identical, then timed in one call)
+    at the chunk worklist the device route builds for the queries qr at
+    nprobe, with its bound.  Returns the numbers for the kernels line."""
+    from clip_retrieval_tpu_torch.index.ivf_int8 import _next_pow2
+    from clip_retrieval_tpu_torch.index.ivfpq import _budget_buckets, _worklist, probe
+
+    dv = ix._ensure_device()
+    probe_vals, probe_idx = probe(qr, dv["coarse"], nprobe)
+    worst_chunks, expected = ix._skew_factor(nprobe)
+    if worst_chunks > 4 * expected:
+        route = "skew buckets, timed at the largest"
+        nchunk_q = max(_budget_buckets(dv["csizes"][probe_idx].sum(dim=1).cpu().numpy(), 8))
+    else:
+        route, nchunk_q = "static budget", _next_pow2(max(worst_chunks, 8))
+    args, _, _ = _worklist(qr, probe_vals, probe_idx, dv, nchunk_q)
+    err = check_k4(adc, args)
+    kern = lambda: adc.adc_scan(*args)
+    plain = lambda: adc.adc_scan_reference(*args)
+    for fn in (kern, plain):
+        fn()
+    times: dict[str, list[float]] = {"K4": [], "plain": []}
+    for name, fn in (("plain", plain), ("K4", kern), ("K4", kern), ("plain", plain)):
+        times[name].append(cuda_ms(fn, 20))
+    k4_ms, plain_ms = float(np.mean(times["K4"])), float(np.mean(times["plain"]))
+    nc, m = args[2].shape[0], ix.m
+    valid_rows = int(args[3].sum().item())
+    nbytes = valid_rows * m + args[1].numel() * 4 + nc * 16 + nc * adc.CHUNK * 4
+    lookups = valid_rows * m
+    clock = clock_max_hz()
+    t_bytes, t_ops = nbytes / HBM_BPS, lookups / (SMS * 32 * clock)
+    bound_ms, bound_by = 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    print(f"  [{gpu}] K4 at the {label} B={qr.shape[0]} worklist, nprobe {nprobe} ({route}: {nchunk_q} chunks per "
+          f"query, NC={nc}, {valid_rows} valid rows, M={m}): {k4_ms:.4f} ms/call (runs {times['K4']}); plain version "
+          f"{plain_ms:.4f} ms/call (runs {times['plain']}); bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB "
+          f"at 3.35 TB/s = {1e3 * t_bytes:.4f} ms, {lookups / 1e6:.1f} M LUT lookups at {SMS} SMs x 32/clk x "
+          f"{clock / 1e9:.3f} GHz = {1e3 * t_ops:.4f} ms); {k4_ms / bound_ms:.1f}x the bound")
+    return {"ms": k4_ms, "plain_ms": plain_ms, "max_abs_err": err, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def run() -> int:
@@ -722,10 +1112,13 @@ def run() -> int:
         print("chip_smoke: run it from the root of a checkout (clip_retrieval_tpu_torch not found)", file=sys.stderr)
         return 2
     from clip_retrieval_tpu_torch.inference.mapper import ClipMapper
-    from clip_retrieval_tpu_torch.ops import cuda_build, flash, int8scan
+    from clip_retrieval_tpu_torch.native import get_adc_lib
+    from clip_retrieval_tpu_torch.ops import adc_scan, cuda_build, flash, int8scan
 
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 references stay f32, the f32 int8 product exact
     torch.backends.cudnn.allow_tf32 = False
+    kernels = {"k1": flash.flash_attention_packed, "k2": flash.flash_attention, "k3": int8scan.int8_gather_scan,
+               "k4": adc_scan.adc_scan}
 
     phase = "device"
     try:
@@ -739,6 +1132,9 @@ def run() -> int:
         build_s = cuda_build.build_all()
         print(f"build: {', '.join(f'{k} {v:.2f} s' for k, v in build_s.items())} (nvcc, then load; in parallel), "
               f"{time.perf_counter() - t0:.2f} s in all")
+        t0 = time.perf_counter()
+        check(get_adc_lib() is not None, "the host C++ ADC scanner (native/adc_scan.cpp) did not build")
+        print(f"build: host ADC scanner (g++) {time.perf_counter() - t0:.2f} s")
 
         phase = "K1 vs plain"
         max_abs = phase_kernels(flash)
@@ -746,31 +1142,76 @@ def run() -> int:
         phase = "K3 vs plain"
         k3_err = phase_k3(int8scan)
 
+        phase = "K2 vs plain"
+        k2_err = phase_k2(flash)
+
+        phase = "K4 vs plain"
+        k4_err = phase_k4(adc_scan)
+
         phase = "main path"
-        launches = phase_main_path(flash, int8scan, gpu)
+        inference_counts = phase_main_path(kernels, gpu)
 
         mapper = ClipMapper(enable_image=True, enable_text=True, clip_model=MODEL, batch_size=BATCH, device="cuda")
         phase = "tower parity"
         phase_parity(mapper, gpu)
 
         phase = "times"
-        k1_ms, plain_ms, max_abs_b256 = phase_times(flash, mapper, gpu)
+        k1_ms, plain_ms, sdpa_ms, max_abs_b256 = phase_times(flash, mapper, gpu)
         del mapper
         torch.cuda.empty_cache()
 
+        phase = "sdpa path"
+        sdpa_counts, k2_ms, k2_plain_ms, k2_lib_ms, k2_err_path = phase_sdpa(flash, kernels, gpu)
+
+        phase = "index build"
+        corpus, pq_rows = phase_pq_corpus(gpu)
+        pq_folder, index_counts = phase_pq_build(corpus, kernels, gpu)
+        pq_ids = np.sort(np.random.default_rng(11).choice(PQ_ROWS, N_QUERIES, replace=False))
+        pq_probed = phase_pq_probe(pq_folder, pq_rows, pq_ids, gpu)
+
         phase = "index"
-        index, sample_ids, originals = phase_index(gpu)
+        index, sample_ids, originals = phase_index(gpu, {PQ_INDEX: pq_folder})
 
         phase = "served path"
-        served_counts, served = phase_serve(flash, int8scan, sample_ids, originals, gpu)
+        served_counts, served, pq_served = phase_serve(kernels, sample_ids, originals, pq_rows, pq_ids, pq_probed,
+                                                       gpu)
 
         phase = "recall"
         phase_recall(index, int8scan, originals, served)
 
         phase = "query times"
-        k3_ms, k3_plain_ms, k3_err_served = phase_query_times(
+        k3_ms, k3_plain_ms, k3_err_served, k3_bound = phase_query_times(
             index, int8scan, originals, sample_ids, served_counts["port"], gpu
         )
+
+        phase = "IVF-PQ checks"
+        k4 = phase_pq_checks(pq_folder, pq_rows, pq_ids, pq_served, adc_scan, gpu)
+
+        phase = "kernels line"
+        paths = {"inference": inference_counts, "index": index_counts, "serving": served_counts, "sdpa": sdpa_counts}
+
+        def by_path(key: str) -> dict:
+            return {name: counts[key] for name, counts in paths.items()}
+
+        att_bound, att_by = attention_bound_ms(BATCH, 16, 257, 257, 64, 2)
+        rows = [
+            ("k1", "flash_attention_packed", "flash_packed.cu", "clip_retrieval_tpu/ops/flash.py:191",
+             max(max_abs, max_abs_b256), k1_ms, plain_ms, att_bound, att_by, sdpa_ms),
+            ("k2", "flash_attention", "flash_packed.cu", "clip_retrieval_tpu/ops/flash.py:259",
+             max(k2_err, k2_err_path), k2_ms, k2_plain_ms, att_bound, att_by, k2_lib_ms),
+            ("k3", "int8_gather_scan", "int8_scan.cu", "clip_retrieval_tpu/ops/int8scan.py:130",
+             max(k3_err, k3_err_served), k3_ms, k3_plain_ms, k3_bound, "bytes", None),
+            ("k4", "adc_scan", "adc_scan.cu", "clip_retrieval_tpu/ops/adc_scan.py:81",
+             max(k4_err, k4["max_abs_err"]), k4["ms"], k4["plain_ms"], k4["bound_ms"], k4["bound_by"], None),
+        ]
+        line = []
+        for key, name, src, replaces, err, ms, p_ms, bound, by, lib in rows:
+            launches = by_path(key)
+            check(sum(launches.values()) > 0, f"{name} never launched on a path")
+            line.append({"name": name, "route": "cuda", "source": f"clip_retrieval_tpu_torch/csrc/{src}",
+                         "replaces": replaces, "launches": sum(launches.values()), "launches_by_path": launches,
+                         "max_abs_err": err, "ms": ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
+                         "library_ms": lib})
     except Exception as e:  # every phase failure ends the run with its phase named
         import traceback
 
@@ -780,31 +1221,7 @@ def run() -> int:
     finally:
         shutil.rmtree(WORK_DIR, ignore_errors=True)
 
-    kernels = [
-        {
-            "name": "flash_attention_packed",
-            "route": "cuda",
-            "source": "clip_retrieval_tpu_torch/csrc/flash_packed.cu",
-            "replaces": "clip_retrieval_tpu/ops/flash.py:191",
-            "launches": launches + served_counts["k1"],
-            "launches_by_path": {"inference": launches, "serving": served_counts["k1"]},
-            "max_abs_err": max(max_abs, max_abs_b256),
-            "ms": k1_ms,
-            "plain_ms": plain_ms,
-        },
-        {
-            "name": "int8_gather_scan",
-            "route": "cuda",
-            "source": "clip_retrieval_tpu_torch/csrc/int8_scan.cu",
-            "replaces": "clip_retrieval_tpu/ops/int8scan.py:130",
-            "launches": served_counts["k3"],
-            "launches_by_path": {"inference": 0, "serving": served_counts["k3"]},
-            "max_abs_err": max(k3_err, k3_err_served),
-            "ms": k3_ms,
-            "plain_ms": k3_plain_ms,
-        },
-    ]
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
 

@@ -19,8 +19,7 @@ from typing import Any, Callable, Dict
 import torch
 from prometheus_client import make_wsgi_app
 
-from clip_retrieval_tpu.front import add_static_routes
-
+from ..front import add_static_routes
 from ..utils.device import resolve_device
 from .knn import KnnService, MetadataService
 from .metrics import REGISTRY, metrics_summary_text

@@ -353,7 +353,7 @@ class KnnService:
         return groups
 
     def get_non_uniques(self, embeddings: np.ndarray, threshold: float = 0.94) -> list[int]:
-        index = FlatIndex(embeddings.shape[1])
+        index = FlatIndex(embeddings.shape[1], device="cpu")  # range_search runs on the host
         index.add(embeddings.astype(np.float16))
         lims, _, ids = index.range_search(embeddings, threshold)
         same = defaultdict(list)

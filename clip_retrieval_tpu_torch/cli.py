@@ -1,10 +1,12 @@
-"""clip-retrieval-tpu-torch CLI: the `inference` and `back` subcommands of
-the port.
+"""clip-retrieval-tpu-torch CLI: the `inference`, `index` and `back`
+subcommands of the port.
 
 Same signature-driven argparse as `clip_retrieval_tpu/cli.py`: the options
 of a subcommand are the target function's parameters, so
 `clip-retrieval-tpu-torch inference --input_dataset d --output_folder o
 --clip_model ViT-L/14` calls `inference.main.main(...)` and
+`clip-retrieval-tpu-torch index --embeddings_folder o --index_folder i` calls
+`index.build.clip_index(...)` and
 `clip-retrieval-tpu-torch back --indices_paths p.json --device cpu` calls
 `back.app.clip_back(...)`.  Also runnable as
 `python -m clip_retrieval_tpu_torch.cli ...`.
@@ -27,12 +29,17 @@ def _lazy_commands() -> dict[str, Callable[[], Callable]]:
 
         return fn
 
+    def index():
+        from .index.build import clip_index as fn
+
+        return fn
+
     def back():
         from .back.app import clip_back as fn
 
         return fn
 
-    return {"inference": inference, "back": back}
+    return {"inference": inference, "index": index, "back": back}
 
 
 def _coerce(value: str) -> Any:

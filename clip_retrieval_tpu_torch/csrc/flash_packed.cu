@@ -1,11 +1,17 @@
-// Packed-layout fused attention for the CLIP towers on Hopper (sm_90a).
+// Fused attention for the CLIP towers on Hopper (sm_90a): kernels K1 and K2.
 //
-// Replaces the Pallas TPU kernel `clip_retrieval_tpu/ops/flash.py::
-// flash_attention_packed` (body `_kern_packed`).  Same math: for every
-// (batch, head), softmax(q·kᵀ·dh^-½ [+ causal mask]) · v, where q, k, v are
-// the packed (B, S, W = heads·dh) projection outputs and each head is the
-// column slice [h·dh, (h+1)·dh).  Logits, softmax and accumulation are f32;
-// the output has the input's dtype and layout.
+// K1 replaces the Pallas TPU kernel `clip_retrieval_tpu/ops/flash.py::
+// flash_attention_packed` (body `_kern_packed`), K2 the Pallas kernel
+// `flash_attention` (body `_attn_kernel`).  Same math for both: for every
+// (batch, head), softmax(q·kᵀ·dh^-½ [+ causal mask]) · v, logits, softmax and
+// accumulation in f32, the output in the input's dtype and layout.  They are
+// one device body with two entry points that differ only in the strides they
+// hand it:
+// - K1 (`crt_flash_packed`): q, k, v are the packed (B, S, W = heads·dh)
+//   projection outputs and each head is the column slice [h·dh, (h+1)·dh);
+// - K2 (`crt_flash_bhsd`): q is (B, H, Sq, dh), k and v are (B, H, Sk, dh),
+//   and Sk may differ from Sq.  The causal mask keeps key j ≤ query row i
+//   (top-left aligned, as the JAX kernel's iota comparison does).
 //
 // Design, and what bounds it on this card:
 // - The TPU kernel holds a whole head's K/V in VMEM.  At S=577, dh=88 that is
@@ -14,7 +20,9 @@
 //   block covers one (batch, head, 64-row query tile) and walks 64-key K/V
 //   tiles through shared memory with an online softmax kept in f32
 //   (FlashAttention-2 style).  The S×S logits never reach device memory.
-// - Heads are read through strides (row stride W, head offset h·dh): no
+// - Heads are read through strides (`Layout`: batch, head and row strides of
+//   q/o and of k/v): K1's packed layout has row stride W and head offset
+//   h·dh, K2's (B, H, S, dh) layout row stride dh and head offset S·dh.  No
 //   head transpose exists before or after the kernel, as on the TPU.
 // - bf16: tensor-core `mma.sync` m16n8k16 with f32 accumulation; each of the
 //   4 warps owns 16 query rows.  dh is zero-padded on chip to a multiple of
@@ -37,8 +45,9 @@
 //   exp(-inf - -inf) never occurs.  K/V rows past S are zero-filled so that
 //   0·V stays 0.
 //
-// Bound from Python with ctypes (plain C interface below); the wrapper is
-// `clip_retrieval_tpu_torch/ops/flash.py::flash_attention_packed`.
+// Bound from Python with ctypes (plain C interface below); the wrappers are
+// `clip_retrieval_tpu_torch/ops/flash.py::flash_attention_packed` (K1) and
+// `::flash_attention` (K2).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -51,6 +60,14 @@ constexpr int kBM = 64;       // query rows per block
 constexpr int kBN = 64;       // keys per streamed tile
 constexpr int kThreads = 128; // 4 warps
 constexpr float kLog2e = 1.4426950408889634f;
+
+// Element strides of one attention call: q and o share theirs, k and v theirs.
+struct Layout {
+  int sq, sk;                  // query rows, keys
+  int q_row, k_row;            // row strides of q / o and of k / v
+  long long q_batch, q_head;   // q / o
+  long long k_batch, k_head;   // k / v
+};
 
 __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                                uint32_t b1) {
@@ -67,8 +84,9 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // Copy rows [r0, r0 + 64) of one head into a [64][LD] shared tile; rows at or
-// past `seq` and columns at or past `dh` are zero.  `vec` selects 16-byte
-// loads (dh % 8 == 0 and 16-byte aligned base pointer).
+// past `seq` and columns at or past `dh` are zero.  `width` is the row stride
+// in elements.  `vec` selects 16-byte loads (dh and every stride % 8 == 0,
+// 16-byte aligned base pointers).
 template <int DP, int LD>
 __device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst, const __nv_bfloat16* src, int r0,
                                                int seq, int width, int dh, bool vec) {
@@ -93,9 +111,9 @@ __device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst, const __nv_bf
 
 template <int DP>
 __global__ void __launch_bounds__(kThreads)
-    flash_packed_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                             const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int seq,
-                             int width, int dh, float scale_log2, int causal, int vec) {
+    flash_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, Layout L, int dh,
+                      float scale_log2, int causal, int vec) {
   // +8 halves per row: the 32-bit fragment loads of 8 row groups x 4 column
   // pairs then hit 32 distinct banks for every DP used here
   constexpr int LD = DP + 8;
@@ -107,10 +125,11 @@ __global__ void __launch_bounds__(kThreads)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;  // mma fragment row group / column pair
   const int m0 = blockIdx.x * kBM;
-  const size_t base = (size_t)blockIdx.z * seq * width + (size_t)blockIdx.y * dh;
+  const size_t qbase = (size_t)blockIdx.z * L.q_batch + (size_t)blockIdx.y * L.q_head;
+  const size_t kbase = (size_t)blockIdx.z * L.k_batch + (size_t)blockIdx.y * L.k_head;
   const bool use_vec = vec != 0;
 
-  load_tile_bf16<DP, LD>(sQ, q + base, m0, seq, width, dh, use_vec);
+  load_tile_bf16<DP, LD>(sQ, q + qbase, m0, L.sq, L.q_row, dh, use_vec);
   __syncthreads();
 
   // this warp's 16 query rows as A fragments, one per 16-wide K-step
@@ -134,13 +153,13 @@ __global__ void __launch_bounds__(kThreads)
   float l_run[2] = {0.f, 0.f};              // this thread's partial row sums
 
   const int row0 = m0 + warp * 16 + g;  // global query row of fragment elements 0,1
-  const int n_end = causal ? min(seq, m0 + kBM) : seq;
+  const int n_end = causal ? min(L.sk, m0 + kBM) : L.sk;
   const unsigned short* sVu = reinterpret_cast<const unsigned short*>(sV);
 
   for (int n0 = 0; n0 < n_end; n0 += kBN) {
     __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile_bf16<DP, LD>(sK, k + base, n0, seq, width, dh, use_vec);
-    load_tile_bf16<DP, LD>(sV, v + base, n0, seq, width, dh, use_vec);
+    load_tile_bf16<DP, LD>(sK, k + kbase, n0, L.sk, L.k_row, dh, use_vec);
+    load_tile_bf16<DP, LD>(sV, v + kbase, n0, L.sk, L.k_row, dh, use_vec);
     __syncthreads();
 
     // S = Q·Kᵀ for 16 rows x 64 keys: 8 n-tiles of m16n8
@@ -167,7 +186,7 @@ __global__ void __launch_bounds__(kThreads)
         const int col = n0 + nt * 8 + t4 * 2 + (e & 1);
         const int row = row0 + (e >> 1) * 8;
         float x = s[nt][e] * scale_log2;
-        if (col >= seq || (causal && col > row)) x = -INFINITY;
+        if (col >= L.sk || (causal && col > row)) x = -INFINITY;
         s[nt][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
@@ -231,14 +250,14 @@ __global__ void __launch_bounds__(kThreads)
     l += __shfl_xor_sync(0xffffffff, l, 2);
     inv[r] = 1.f / l;
   }
-  __nv_bfloat16* ob = o + base;
+  __nv_bfloat16* ob = o + qbase;
 #pragma unroll
   for (int dt = 0; dt < DP / 8; ++dt) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int row = row0 + (e >> 1) * 8;
       const int col = dt * 8 + t4 * 2 + (e & 1);
-      if (row < seq && col < dh) ob[(size_t)row * width + col] = __float2bfloat16(acc[dt][e] * inv[e >> 1]);
+      if (row < L.sq && col < dh) ob[(size_t)row * L.q_row + col] = __float2bfloat16(acc[dt][e] * inv[e >> 1]);
     }
   }
 }
@@ -248,8 +267,8 @@ constexpr int kBMF = 32;
 
 template <int DP>
 __global__ void __launch_bounds__(kThreads)
-    flash_packed_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                            float* __restrict__ o, int seq, int width, int dh, float scale_log2, int causal) {
+    flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                     float* __restrict__ o, Layout L, int dh, float scale_log2, int causal) {
   constexpr int LDK = DP + 1;  // conflict-free column walk over K rows
   constexpr int LDS = kBN + 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -262,25 +281,26 @@ __global__ void __launch_bounds__(kThreads)
   const int r_loc = tid >> 2, part = tid & 3;  // this thread's row and quarter
   const int m0 = blockIdx.x * kBMF;
   const int row = m0 + r_loc;
-  const size_t base = (size_t)blockIdx.z * seq * width + (size_t)blockIdx.y * dh;
+  const size_t qbase = (size_t)blockIdx.z * L.q_batch + (size_t)blockIdx.y * L.q_head;
+  const size_t kbase = (size_t)blockIdx.z * L.k_batch + (size_t)blockIdx.y * L.k_head;
 
   for (int idx = tid; idx < kBMF * DP; idx += kThreads) {
     const int r = idx / DP, c = idx % DP;
-    sQ[idx] = (m0 + r < seq && c < dh) ? q[base + (size_t)(m0 + r) * width + c] : 0.f;
+    sQ[idx] = (m0 + r < L.sq && c < dh) ? q[qbase + (size_t)(m0 + r) * L.q_row + c] : 0.f;
   }
 
   float acc[DP / 4];
 #pragma unroll
   for (int j = 0; j < DP / 4; ++j) acc[j] = 0.f;
   float m_run = -INFINITY, l_run = 0.f;
-  const int n_end = causal ? min(seq, m0 + kBMF) : seq;
+  const int n_end = causal ? min(L.sk, m0 + kBMF) : L.sk;
 
   for (int n0 = 0; n0 < n_end; n0 += kBN) {
     __syncthreads();
     for (int idx = tid; idx < kBN * DP; idx += kThreads) {
       const int r = idx / DP, c = idx % DP;
-      const bool ok = n0 + r < seq && c < dh;
-      const size_t off = base + (size_t)(n0 + r) * width + c;
+      const bool ok = n0 + r < L.sk && c < dh;
+      const size_t off = kbase + (size_t)(n0 + r) * L.k_row + c;
       sK[r * LDK + c] = ok ? k[off] : 0.f;
       sV[r * DP + c] = ok ? v[off] : 0.f;
     }
@@ -292,7 +312,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll 8
       for (int d = 0; d < DP; ++d) dot = fmaf(sQ[r * DP + d], sK[c * LDK + d], dot);
       float x = dot * scale_log2;
-      if (n0 + c >= seq || (causal && n0 + c > m0 + r)) x = -INFINITY;
+      if (n0 + c >= L.sk || (causal && n0 + c > m0 + r)) x = -INFINITY;
       sS[r * LDS + c] = x;
     }
     __syncthreads();
@@ -331,88 +351,105 @@ __global__ void __launch_bounds__(kThreads)
   l += __shfl_xor_sync(0xffffffff, l, 1);
   l += __shfl_xor_sync(0xffffffff, l, 2);
   const float inv = 1.f / l;
-  if (row < seq) {
+  if (row < L.sq) {
 #pragma unroll
     for (int j = 0; j < DP / 4; ++j) {
       const int c = part + 4 * j;
-      if (c < dh) o[base + (size_t)row * width + c] = acc[j] * inv;
+      if (c < dh) o[qbase + (size_t)row * L.q_row + c] = acc[j] * inv;
     }
   }
 }
 
 template <int DP>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, int batch, int seq, int heads,
-                        int dh, float scale_log2, int causal, int vec, cudaStream_t stream) {
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, const Layout& L, int batch,
+                        int heads, int dh, float scale_log2, int causal, int vec, cudaStream_t stream) {
   const size_t smem = (size_t)(kBM + 2 * kBN) * (DP + 8) * sizeof(__nv_bfloat16);
-  cudaError_t err = cudaFuncSetAttribute(flash_packed_bf16_kernel<DP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = cudaFuncSetAttribute(flash_bf16_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((seq + kBM - 1) / kBM, heads, batch);
-  flash_packed_bf16_kernel<DP><<<grid, kThreads, smem, stream>>>(
+  dim3 grid((L.sq + kBM - 1) / kBM, heads, batch);
+  flash_bf16_kernel<DP><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), seq, heads * dh, dh, scale_log2,
-      causal, vec);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), L, dh, scale_log2, causal, vec);
   return cudaGetLastError();
 }
 
 template <int DP>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int batch, int seq, int heads,
-                       int dh, float scale_log2, int causal, cudaStream_t stream) {
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, const Layout& L, int batch, int heads,
+                       int dh, float scale_log2, int causal, int /*vec*/, cudaStream_t stream) {
   const size_t smem = ((size_t)kBMF * DP + (size_t)kBN * (DP + 1) + (size_t)kBN * DP +
                        (size_t)kBMF * (kBN + 1)) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(flash_packed_f32_kernel<DP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = cudaFuncSetAttribute(flash_f32_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((seq + kBMF - 1) / kBMF, heads, batch);
-  flash_packed_f32_kernel<DP><<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), seq, heads * dh, dh, scale_log2, causal);
+  dim3 grid((L.sq + kBMF - 1) / kBMF, heads, batch);
+  flash_f32_kernel<DP><<<grid, kThreads, smem, stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
+                                                         static_cast<const float*>(v), static_cast<float*>(o), L,
+                                                         dh, scale_log2, causal);
   return cudaGetLastError();
 }
 
-#define CRT_DISPATCH_DP(DPVAL, CALL) \
-  case DPVAL:                        \
-    return CALL<DPVAL>
+#define CRT_DISPATCH_DP(DPVAL, LAUNCH) \
+  case DPVAL:                          \
+    return LAUNCH<DPVAL>(q, k, v, o, L, batch, heads, dh, scale_log2, causal, vec, st)
 
-}  // namespace
-
-extern "C" {
-
-// q, k, v, o: contiguous (batch, seq, heads*dh) device buffers of one dtype
-// (0 = float32, 1 = bfloat16).  vec: bf16 only, 1 when dh % 8 == 0 and every
-// pointer is 16-byte aligned.  Returns a cudaError_t value (0 on success);
-// the caller checks it: a refused launch never runs.
-int crt_flash_packed(const void* q, const void* k, const void* v, void* o, int batch, int seq, int heads,
-                     int dh, int causal, int dtype, int vec, void* stream) {
-  if (batch <= 0 || seq <= 0 || heads <= 0 || dh <= 0 || dh > 128 || batch > 65535 || heads > 65535)
+// One device body, either entry: dispatch on dtype (0 = float32, 1 =
+// bfloat16) and on dh padded to the MMA K-step of 16.
+int launch(const void* q, const void* k, const void* v, void* o, const Layout& L, int batch, int heads, int dh,
+           int causal, int dtype, int vec, void* stream) {
+  if (batch <= 0 || heads <= 0 || L.sq <= 0 || L.sk <= 0 || dh <= 0 || dh > 128 || batch > 65535 || heads > 65535)
     return (int)cudaErrorInvalidValue;
   const float scale_log2 = kLog2e / sqrtf((float)dh);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int dp = (dh + 15) / 16 * 16;
   if (dtype == 1) {
     switch (dp) {
-      CRT_DISPATCH_DP(16, launch_bf16)(q, k, v, o, batch, seq, heads, dh, scale_log2, causal, vec, st);
-      CRT_DISPATCH_DP(32, launch_bf16)(q, k, v, o, batch, seq, heads, dh, scale_log2, causal, vec, st);
-      CRT_DISPATCH_DP(48, launch_bf16)(q, k, v, o, batch, seq, heads, dh, scale_log2, causal, vec, st);
-      CRT_DISPATCH_DP(64, launch_bf16)(q, k, v, o, batch, seq, heads, dh, scale_log2, causal, vec, st);
-      CRT_DISPATCH_DP(80, launch_bf16)(q, k, v, o, batch, seq, heads, dh, scale_log2, causal, vec, st);
-      CRT_DISPATCH_DP(96, launch_bf16)(q, k, v, o, batch, seq, heads, dh, scale_log2, causal, vec, st);
-      CRT_DISPATCH_DP(112, launch_bf16)(q, k, v, o, batch, seq, heads, dh, scale_log2, causal, vec, st);
-      CRT_DISPATCH_DP(128, launch_bf16)(q, k, v, o, batch, seq, heads, dh, scale_log2, causal, vec, st);
+      CRT_DISPATCH_DP(16, launch_bf16);
+      CRT_DISPATCH_DP(32, launch_bf16);
+      CRT_DISPATCH_DP(48, launch_bf16);
+      CRT_DISPATCH_DP(64, launch_bf16);
+      CRT_DISPATCH_DP(80, launch_bf16);
+      CRT_DISPATCH_DP(96, launch_bf16);
+      CRT_DISPATCH_DP(112, launch_bf16);
+      CRT_DISPATCH_DP(128, launch_bf16);
     }
   } else if (dtype == 0) {
     switch (dp) {
-      CRT_DISPATCH_DP(16, launch_f32)(q, k, v, o, batch, seq, heads, dh, scale_log2, causal, st);
-      CRT_DISPATCH_DP(32, launch_f32)(q, k, v, o, batch, seq, heads, dh, scale_log2, causal, st);
-      CRT_DISPATCH_DP(48, launch_f32)(q, k, v, o, batch, seq, heads, dh, scale_log2, causal, st);
-      CRT_DISPATCH_DP(64, launch_f32)(q, k, v, o, batch, seq, heads, dh, scale_log2, causal, st);
-      CRT_DISPATCH_DP(80, launch_f32)(q, k, v, o, batch, seq, heads, dh, scale_log2, causal, st);
-      CRT_DISPATCH_DP(96, launch_f32)(q, k, v, o, batch, seq, heads, dh, scale_log2, causal, st);
-      CRT_DISPATCH_DP(112, launch_f32)(q, k, v, o, batch, seq, heads, dh, scale_log2, causal, st);
-      CRT_DISPATCH_DP(128, launch_f32)(q, k, v, o, batch, seq, heads, dh, scale_log2, causal, st);
+      CRT_DISPATCH_DP(16, launch_f32);
+      CRT_DISPATCH_DP(32, launch_f32);
+      CRT_DISPATCH_DP(48, launch_f32);
+      CRT_DISPATCH_DP(64, launch_f32);
+      CRT_DISPATCH_DP(80, launch_f32);
+      CRT_DISPATCH_DP(96, launch_f32);
+      CRT_DISPATCH_DP(112, launch_f32);
+      CRT_DISPATCH_DP(128, launch_f32);
     }
   }
   return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+extern "C" {
+
+// K1. q, k, v, o: contiguous (batch, seq, heads*dh) device buffers of one
+// dtype (0 = float32, 1 = bfloat16).  vec: bf16 only, 1 when dh % 8 == 0 and
+// every pointer is 16-byte aligned.  Returns a cudaError_t value (0 on
+// success); the caller checks it: a refused launch never runs.
+int crt_flash_packed(const void* q, const void* k, const void* v, void* o, int batch, int seq, int heads,
+                     int dh, int causal, int dtype, int vec, void* stream) {
+  const int w = heads * dh;
+  const Layout L{seq, seq, w, w, (long long)seq * w, dh, (long long)seq * w, dh};
+  return launch(q, k, v, o, L, batch, heads, dh, causal, dtype, vec, stream);
+}
+
+// K2. q, o: contiguous (batch, heads, seq_q, dh); k, v: contiguous (batch,
+// heads, seq_k, dh); one dtype as above.  vec and the return value as K1's.
+int crt_flash_bhsd(const void* q, const void* k, const void* v, void* o, int batch, int heads, int seq_q,
+                   int seq_k, int dh, int causal, int dtype, int vec, void* stream) {
+  const Layout L{seq_q, seq_k, dh, dh, (long long)heads * seq_q * dh, (long long)seq_q * dh,
+                 (long long)heads * seq_k * dh, (long long)seq_k * dh};
+  return launch(q, k, v, o, L, batch, heads, dh, causal, dtype, vec, stream);
 }
 
 const char* crt_cuda_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

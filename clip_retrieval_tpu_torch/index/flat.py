@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..ops.topk import topk_ip, topk_merge
+from ..utils.device import resolve_device
 
 _DEVICE_CHUNK = 1 << 20  # DB rows per range_search block
 STREAM_BYTES = 32 << 20  # host→device block size of a search
@@ -40,9 +41,9 @@ class FlatIndex:
     index_type = "flat"
 
     def __init__(self, d: int, vectors: np.ndarray | None = None, ids: np.ndarray | None = None,
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device = "cuda"):
         self.d = d
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._chunks: list[np.ndarray] = []
         self.vectors = np.zeros((0, d), np.float16) if vectors is None else np.asarray(vectors, np.float16)
         self.ids = None if ids is None else np.asarray(ids, np.int64)
@@ -173,7 +174,7 @@ class FlatIndex:
             np.save(os.path.join(path, "ids.npy"), self.ids)
 
     @classmethod
-    def load(cls, path: str, mmap: bool = True, device: str | torch.device = "cpu") -> "FlatIndex":
+    def load(cls, path: str, mmap: bool = True, device: str | torch.device = "cuda") -> "FlatIndex":
         with open(os.path.join(path, "header.json")) as f:
             header = json.load(f)
         vectors = np.load(os.path.join(path, "vectors.npy"), mmap_mode="r" if mmap else None)

@@ -32,7 +32,7 @@ What differs from the JAX package:
   back in one transfer; `overflow_redispatches` counts re-dispatches;
 - `build_chunked_image` builds the image on the device from blocks of the
   host rows, so the host never holds a second, chunked copy of the corpus;
-- `from_vectors` needs k-means (slice 3) and raises.
+- `from_vectors` trains and assigns with the port's k-means on `device`.
 """
 
 from __future__ import annotations
@@ -45,8 +45,9 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..ops.int8mm import quantize_rows_device
+from ..ops.int8mm import quantize_rows, quantize_rows_device
 from ..ops.int8scan import int8_gather_scan
+from ..utils.device import resolve_device
 from .flat import to_device
 
 _UPLOAD_ROWS = 1 << 18  # CSR rows per host→device block of the chunked image
@@ -86,7 +87,7 @@ def build_chunked_image(
     lo: int = 0,
     hi: int | None = None,
     pad_chunks: int | None = None,
-    device: str | torch.device = "cpu",
+    device: str | torch.device = "cuda",
 ) -> dict:
     """Chunked CSR image of lists [lo, hi) as tensors on `device`:
       rows   (nc, Lc, d) int8 — list rows packed into fixed-size chunks
@@ -97,7 +98,7 @@ def build_chunked_image(
     given.  The arrays are zeroed on the device and blocks of CSR rows are
     scattered to their image rows, so the host never holds a chunked copy of
     the corpus."""
-    device = torch.device(device)
+    device = resolve_device(device)
     offs = np.asarray(list_offsets, np.int64)
     hi = offs.shape[0] - 1 if hi is None else hi
     d = q_vectors.shape[1]
@@ -153,10 +154,11 @@ def _readback(*tensors: torch.Tensor) -> list[np.ndarray]:
     return out
 
 
-def _coarse_probe(q: torch.Tensor, coarse: torch.Tensor, p: int) -> torch.Tensor:
-    """(B, p) per-query top-p probed lists."""
-    scores = torch.matmul(q, coarse.T)
-    return torch.topk(scores, min(p, coarse.shape[0]), dim=1).indices
+def select_probes(coarse_scores: torch.Tensor, p: int) -> torch.Tensor:
+    """The probe rule of both IVF tiers, on every route: each query's top-p
+    lists by its q·c coarse scores (B, nlist), as in the JAX package.
+    Returns the (B, p) probed lists."""
+    return torch.topk(coarse_scores, min(p, coarse_scores.shape[1]), dim=1).indices
 
 
 def _scan_topk(q: torch.Tensor, dv: dict, chunk_sel: torch.Tensor, k: int):
@@ -178,7 +180,7 @@ def _search_device(q: torch.Tensor, dv: dict, k: int, probe_lists: int, u_cap: i
     nlist = coarse.shape[0]
     clist = dv["clist"]
     coarse_scores = torch.matmul(q, coarse.T)
-    per_q = torch.topk(coarse_scores, min(probe_lists, nlist), dim=1).indices
+    per_q = select_probes(coarse_scores, probe_lists)
     presence = torch.zeros(nlist, device=q.device).index_fill_(0, per_q.reshape(-1), 1.0)
     agg = coarse_scores.amax(dim=0)
     agg = (agg - agg.min()) / (agg.max() - agg.min() + 1e-9)  # (0,1) tie-break
@@ -208,7 +210,7 @@ class IVFInt8Index:
         refine_vectors: np.ndarray | None = None,
         rerank_factor: int = 4,
         union: str | None = None,
-        device: str | torch.device = "cpu",
+        device: str | torch.device = "cuda",
     ):
         self.d = d
         self.coarse_centroids = np.asarray(coarse_centroids, np.float32)
@@ -225,7 +227,7 @@ class IVFInt8Index:
         self.union = union or os.environ.get("CRT_IVF_INT8_UNION", "auto")
         if self.union not in ("exact", "static", "auto", "device"):
             raise ValueError(f"union must be exact|static|auto|device, got {self.union!r}")
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.last_union_chunks = 0  # probed-union chunks of the last batch, before padding
         self.overflow_redispatches = 0  # device-mode batches re-run after their union overflowed the cap
         # union="device" adaptive caps, keyed by (padded_b, nprobe)
@@ -251,11 +253,77 @@ class IVFInt8Index:
     # -- build -------------------------------------------------------------
 
     @classmethod
-    def from_vectors(cls, *args, **kwargs) -> "IVFInt8Index":
-        raise NotImplementedError(
-            "IVFInt8Index.from_vectors needs k-means (ops/kmeans.py), which is not ported yet (ROADMAP queue 1, "
-            "item 10, slice 3); build the index with the JAX package and load it, or construct it from its parts"
-        )
+    def from_vectors(
+        cls,
+        x: np.ndarray,
+        nlist: int,
+        nprobe: int = 64,
+        kmeans_niter: int = 20,
+        seed: int = 0,
+        refine: bool = False,
+        refine_source=None,
+        coarse: np.ndarray | None = None,
+        id_offset: int = 0,
+        union: str | None = None,
+        device: str | torch.device = "cuda",
+    ) -> "IVFInt8Index":
+        """Build from raw vectors: k-means (skipped when `coarse` is given:
+        the shard-build mode, every shard encoding against one trained
+        quantizer), assignment, rows grouped by list and quantized chunkwise.
+        `id_offset` shifts this shard's vector ids; `refine_source` (e.g. a
+        ShardRowGather over the original fp16 shards) is the re-rank store
+        as-is."""
+        from ..ops import kmeans as km
+
+        device = resolve_device(device)
+        # disk-backed inputs stay disk-backed: np.asarray would strip the
+        # memmap subclass and copy a non-f32 memmap into RAM
+        is_disk = isinstance(x, np.memmap)
+        if not is_disk:
+            x = np.asarray(x, np.float32)
+        n, d = x.shape
+        if coarse is None:
+            coarse_t = km.kmeans(x, nlist, niter=kmeans_niter, seed=seed, device=device)
+        elif coarse.shape != (nlist, d):
+            raise ValueError(f"pretrained coarse centroids {coarse.shape} do not match (nlist={nlist}, d={d})")
+        else:
+            coarse_t = torch.from_numpy(np.asarray(coarse, np.float32)).to(device)
+        assign = km.assign_chunked(x, coarse_t)
+        order = np.argsort(assign, kind="stable")
+        offsets = np.zeros((nlist + 1,), np.int64)
+        np.cumsum(np.bincount(assign, minlength=nlist), out=offsets[1:])
+        # group and quantize chunkwise: x[order] would materialize the whole
+        # f32 corpus in RAM even when x is a memmap
+        scratch = [os.path.dirname(x.filename)] if is_disk and x.filename else []
+        if is_disk:
+            from .build import scratch_memmap
+
+            q = scratch_memmap((n, d), np.int8, scratch)
+        else:
+            q = np.empty((n, d), np.int8)
+        s = np.empty((n,), np.float32)
+        chunk = 1 << 17
+        for i in range(0, n, chunk):
+            sel = order[i : i + chunk]
+            q[i : i + len(sel)], s[i : i + len(sel)] = quantize_rows(np.asarray(x[sel], np.float32))
+        refine_vectors = None
+        if refine:
+            if id_offset and refine_source is None:
+                # refine rows are looked up by GLOBAL vector id
+                raise ValueError("refine=True with id_offset needs refine_source indexed by GLOBAL id")
+            if refine_source is not None:
+                refine_vectors = refine_source
+            elif is_disk:
+                from .build import scratch_memmap
+
+                refine_vectors = scratch_memmap((n, d), np.float16, scratch)
+                for i in range(0, n, chunk):
+                    refine_vectors[i : i + chunk] = np.asarray(x[i : i + chunk], np.float16)
+            else:
+                refine_vectors = x.astype(np.float16)
+        ids = order.astype(np.int64) + id_offset
+        return cls(d, coarse_t.cpu().numpy(), offsets, ids, q, s, nprobe=nprobe, refine_vectors=refine_vectors,
+                   union=union, device=device)
 
     # -- device image -------------------------------------------------------
 
@@ -389,7 +457,7 @@ class IVFInt8Index:
         k_dev = min(k, self.ntotal)
         mode = self.resolve_union(q.shape[0])
         if mode == "exact":
-            per_q = _coarse_probe(qd, dv["coarse"], p)
+            per_q = select_probes(torch.matmul(qd, dv["coarse"].T), p)
             return {"mode": mode, "q": qd, "per_q": per_q, "b": b, "k": k, "k_dev": k_dev}
         if mode == "device":
             u_cap = self._device_union_cap(q.shape[0], p)
@@ -490,7 +558,7 @@ class IVFInt8Index:
             save_rows_fp16(os.path.join(path, "refine_vectors.npy"), self.refine_vectors)
 
     @classmethod
-    def load(cls, path: str, mmap: bool = True, device: str | torch.device = "cpu") -> "IVFInt8Index":
+    def load(cls, path: str, mmap: bool = True, device: str | torch.device = "cuda") -> "IVFInt8Index":
         with open(os.path.join(path, "header.json")) as f:
             h = json.load(f)
         mm = "r" if mmap else None

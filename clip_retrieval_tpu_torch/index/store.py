@@ -1,8 +1,9 @@
 """Index loading/dispatch on the index header's type.
 
-Counterpart of `clip_retrieval_tpu/index/store.py`.  The port serves `flat`
-and `ivf_int8` directories on one device; the other tiers raise and name the
-ROADMAP item that ports them.
+Counterpart of `clip_retrieval_tpu/index/store.py`.  The port serves `flat`,
+`flat_int8` (`ShardedFlatIndex` on one device), `ivf_int8` and `ivfpq`
+directories on one device; the list-sharded multi-chip IVF tier raises and
+names the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ import torch
 from ..utils.device import resolve_device
 from .flat import FlatIndex
 from .ivf_int8 import IVFInt8Index
+from .ivfpq import IVFPQIndex
+from .sharded_flat import ShardedFlatIndex
 
 LOGGER = logging.getLogger("clip_back")
 
@@ -53,9 +56,7 @@ def load_index(path: str, enable_mmap: bool = True, sharded: bool | None = None,
     if kind == "flat":
         return FlatIndex.load(path, mmap=enable_mmap, device=device)
     if kind == "flat_int8":
-        raise NotImplementedError(
-            f"{path}: the sharded int8 flat tier (index/sharded_flat.py) is not ported yet (ROADMAP queue 1, item 7)"
-        )
+        return ShardedFlatIndex.load(path, mmap=enable_mmap, device=device)
     if kind == "ivf_int8":
         if sharded:
             raise NotImplementedError(
@@ -64,7 +65,5 @@ def load_index(path: str, enable_mmap: bool = True, sharded: bool | None = None,
             )
         return IVFInt8Index.load(path, mmap=enable_mmap, device=device)
     if kind == "ivfpq":
-        raise NotImplementedError(
-            f"{path}: the IVF-PQ tier (index/ivfpq.py) is not ported yet (ROADMAP queue 1, item 11)"
-        )
+        return IVFPQIndex.load(path, mmap=enable_mmap, device=device)
     raise ValueError(f"unknown index type {kind!r}")

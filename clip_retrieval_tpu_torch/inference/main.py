@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import math
 
-from clip_retrieval_tpu.utils.braces import braceexpand
+from ..utils.braces import braceexpand
 
 from ..utils.device import resolve_device
 from .distributor import make_distributor

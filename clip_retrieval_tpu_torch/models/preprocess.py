@@ -1,8 +1,8 @@
 """Host image preprocessing: decode, bicubic resize, center crop → uint8 HWC.
 
 Counterpart of `clip_retrieval_tpu/models/preprocess.py` (host side).  It
-drives the same C++ decoder, `clip_retrieval_tpu.native`, which imports no
-jax, with PIL as the fallback for what that decoder rejects or where it
+drives the port's copy of the C++ decoder (`native/image_decode.cpp`), with
+PIL as the fallback for what that decoder rejects or where it
 cannot be built.  Normalization happens on the device inside
 `clip.encode_image`, so only uint8 pixels cross to the GPU.
 """
@@ -15,7 +15,7 @@ from typing import Sequence
 
 import numpy as np
 
-from clip_retrieval_tpu.native import get_decode_lib
+from ..native import get_decode_lib
 
 try:
     from PIL import Image

@@ -23,6 +23,7 @@ import torch
 
 from . import configs, loaders
 from .clip import CLIP, init_clip
+from ..utils.device import resolve_device
 from .tokenizer import CLIPTokenizer, default_bpe_path
 
 
@@ -61,13 +62,14 @@ def _make_tokenizer(cfg: configs.CLIPConfig, real_weights: bool = False) -> CLIP
 
 
 def load_model(
-    clip_model: str, checkpoint: str | None = None, device: str | torch.device = "cpu"
+    clip_model: str, checkpoint: str | None = None, device: str | torch.device = "cuda"
 ) -> ModelBundle:
     """Resolve clip_model (see module docstring) to a ModelBundle on `device`.
 
     `"open_clip:ARCH/PRETRAINED"` resolves ARCH as a config name (hosted
     weights cannot be fetched: pass `checkpoint=`), and `"hf_clip:DIR"` is
-    an alias of `"hf:DIR"`."""
+    an alias of `"hf:DIR"`.  Raises for device="cuda" when no GPU is visible."""
+    device = resolve_device(device)
     if clip_model.startswith("nm:"):
         raise ValueError(
             "deepsparse ('nm:') clip_model backends are sparse-ONNX CPU accelerators this package does "

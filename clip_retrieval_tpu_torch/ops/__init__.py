@@ -1,2 +1,2 @@
-"""Device ops: attention dispatch, top-k and int8 search ops, and the
-hand-written CUDA kernels."""
+"""Device ops: attention dispatch, top-k, int8 search ops, k-means and PQ,
+and the hand-written CUDA kernels."""

@@ -89,14 +89,14 @@ def build_all() -> dict[str, float]:
     import time
     from concurrent.futures import ThreadPoolExecutor
 
-    from . import flash, int8scan
+    from . import adc_scan, flash, int8scan
 
     def timed(build):
         t0 = time.perf_counter()
         build()
         return time.perf_counter() - t0
 
-    builders = {"flash_packed": flash.build, "int8_scan": int8scan.build}
-    with ThreadPoolExecutor(len(builders)) as pool:
-        futures = {name: pool.submit(timed, fn) for name, fn in builders.items()}
+    build_fns = {"flash_packed": flash.build, "int8_scan": int8scan.build, "adc_scan": adc_scan.build}
+    with ThreadPoolExecutor(len(build_fns)) as pool:
+        futures = {name: pool.submit(timed, fn) for name, fn in build_fns.items()}
         return {name: f.result() for name, f in futures.items()}

@@ -1,10 +1,13 @@
-"""Fused attention on the packed (B, S, W) projection layout: kernel K1.
+"""Fused attention: kernels K1 (packed layout) and K2 ((B, H, S, dh) layout).
 
-Counterpart of `clip_retrieval_tpu/ops/flash.py::flash_attention_packed`.
-On a CUDA tensor `flash_attention_packed` launches the hand-written Hopper
-kernel in `csrc/flash_packed.cu` (built with nvcc at first use) or raises;
-on a CPU tensor it runs `flash_attention_packed_reference`, the same math in
-plain PyTorch.  Which one runs depends only on where the tensors live.
+Counterparts of `clip_retrieval_tpu/ops/flash.py::flash_attention_packed`
+(K1, on the packed (B, S, W) projection layout the towers use) and
+`::flash_attention` (K2, on (B, H, S, dh), Sk may differ from Sq; the
+`attention.sdpa` entry).  Both are entries of one hand-written Hopper kernel,
+`csrc/flash_packed.cu` (built with nvcc at first use): on CUDA tensors a
+wrapper launches it or raises; on CPU tensors it runs its plain version, the
+same math in plain PyTorch.  Which one runs depends only on where the tensors
+live.  Each wrapper counts its own launches.
 """
 
 from __future__ import annotations
@@ -53,6 +56,8 @@ def _lib() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.crt_flash_packed.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp]
     lib.crt_flash_packed.restype = ci
+    lib.crt_flash_bhsd.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, vp]
+    lib.crt_flash_bhsd.restype = ci
     lib.crt_cuda_error_string.argtypes = [ci]
     lib.crt_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -113,3 +118,62 @@ def flash_attention_packed(
 
 
 flash_attention_packed.launches = 0  # kernel launches, counted only where the kernel launches
+
+
+def flash_attention_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = False
+) -> torch.Tensor:
+    """Plain (B, H, S, dh) attention, the counterpart of the JAX kernel's
+    `_attn_kernel`: `attention.sdpa_reference` with f32 logits (dh^-½ scale,
+    causal mask -1e30 where key j > query row i, f32 softmax, probabilities
+    cast to v's dtype, P·V accumulated in f32, output in v's dtype)."""
+    from .attention import sdpa_reference  # attention imports this module
+
+    return sdpa_reference(q, k, v, causal=causal)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = False) -> torch.Tensor:
+    """softmax(q·kᵀ·dh^-½ [causal]) · v on q (B, H, Sq, dh), k and v
+    (B, H, Sk, dh).  Returns (B, H, Sq, dh) in q's dtype.
+
+    CUDA tensors: bf16 or f32, contiguous, dh ≤ 128; anything else raises.
+    CPU tensors: the plain reference."""
+    devices = {q.device, k.device, v.device}
+    if len(devices) != 1:
+        raise ValueError(f"q, k, v on different devices: {sorted(map(str, devices))}")
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, causal=causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu tensors, got {q.device}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]:
+        raise ValueError(f"q must be (B, H, Sq, dh) and k, v (B, H, Sk, dh), got {q.shape}, {k.shape}, {v.shape}")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"q, k, v must all be bfloat16 or float32, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("q, k, v must be contiguous")
+    b, h, sq, dh = q.shape
+    sk = k.shape[2]
+    if dh > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {dh} > {MAX_HEAD_DIM} is not supported by the kernel")
+    if b > 65535 or h > 65535:
+        raise ValueError(f"batch {b} or heads {h} exceeds the kernel grid limit 65535")
+    if sk == 0:
+        raise ValueError("attention over zero keys")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    ptrs = [t.data_ptr() for t in (q, k, v, out)]
+    vec = int(q.dtype == torch.bfloat16 and dh % 8 == 0 and all(p % 16 == 0 for p in ptrs))
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.crt_flash_bhsd(*ptrs, b, h, sq, sk, dh, int(causal), _DTYPE_CODE[q.dtype], vec, stream)
+    if rc != 0:
+        msg = lib.crt_cuda_error_string(rc).decode()
+        raise RuntimeError(f"flash_attention kernel launch failed ({rc}: {msg}) at B={b} H={h} Sq={sq} Sk={sk} dh={dh}")
+    with _LAUNCH_LOCK:
+        flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0  # kernel launches, counted only where the kernel launches

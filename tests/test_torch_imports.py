@@ -1,9 +1,12 @@
-"""The port imports no jax, and never falls back to the CPU by itself.
+"""The port imports neither jax nor the JAX package, and never falls back to
+the CPU by itself.
 
-Importing every module of `clip_retrieval_tpu_torch` in a fresh interpreter
-must leave `jax` out of `sys.modules` (this test process has jax loaded by
-tests/conftest.py, hence the subprocess).  Entry points default to
-device="cuda" and raise when no GPU is visible.
+Importing every module of `clip_retrieval_tpu_torch` (and `chip_smoke.py`)
+in a fresh interpreter must leave `jax` and every `clip_retrieval_tpu` /
+`clip_retrieval_tpu.*` module out of `sys.modules` (this test process has
+both loaded by tests/conftest.py, hence the subprocess), and no source of
+the port may import them.  Entry points, index classes and loaders default
+to device="cuda" and raise when no GPU is visible.
 """
 
 import os
@@ -53,6 +56,29 @@ def test_sources_have_no_jax_import():
     assert not offenders
 
 
+def test_importing_the_port_and_chip_smoke_leaves_the_jax_package_out():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import clip_retrieval_tpu_torch as p\n"
+        "import chip_smoke\n"
+        "for m in pkgutil.walk_packages(p.__path__, 'clip_retrieval_tpu_torch.'): importlib.import_module(m.name)\n"
+        "bad = sorted(k for k in sys.modules if k == 'clip_retrieval_tpu' or k.startswith('clip_retrieval_tpu.'))\n"
+        "print('OK' if not bad else 'JAX PACKAGE ' + ' '.join(bad[:5]))\n"
+    )
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("OK"), proc.stdout
+
+
+def test_sources_have_no_import_of_the_jax_package():
+    """Static: no port module and not chip_smoke.py names the JAX package in
+    an import (the exact name `clip_retrieval_tpu_torch` does not count)."""
+    pattern = re.compile(r"^\s*(from|import)\s+clip_retrieval_tpu(\.|\s|$)", re.M)
+    files = [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]
+    offenders = [str(p) for p in files if pattern.search(p.read_text())]
+    assert not offenders
+
+
 def test_mapper_default_device_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
@@ -79,6 +105,42 @@ def test_serving_entry_points_default_device_raises_without_cuda(monkeypatch, tm
         load_index(str(tmp_path / "missing_index"))
     with pytest.raises(RuntimeError, match="is_available"):
         KnnService({})
+
+
+def test_index_classes_loaders_and_clip_index_default_to_cuda(monkeypatch, tmp_path):
+    import numpy as np
+
+    from clip_retrieval_tpu_torch.index.build import clip_index
+    from clip_retrieval_tpu_torch.index.flat import FlatIndex
+    from clip_retrieval_tpu_torch.index.ivf_int8 import IVFInt8Index
+    from clip_retrieval_tpu_torch.index.ivfpq import IVFPQIndex
+    from clip_retrieval_tpu_torch.models.zoo import load_model
+
+    ivf = IVFInt8Index(4, np.zeros((2, 4), np.float32), np.zeros(3, np.int64), np.zeros(0, np.int64),
+                       np.zeros((0, 4), np.int8), np.zeros(0, np.float32), device="cpu")
+    ivf.save(str(tmp_path / "ivf"))
+    pq = IVFPQIndex(4, np.zeros((2, 4), np.float32), np.zeros((2, 256, 2), np.float32), None, np.zeros(3, np.int64),
+                    np.zeros(0, np.int64), np.zeros((0, 2), np.uint8), device="cpu")
+    pq.save(str(tmp_path / "pq"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (
+        lambda: clip_index(str(tmp_path / "no_embeddings"), str(tmp_path / "out")),
+        lambda: IVFPQIndex.load(str(tmp_path / "pq")),
+        lambda: IVFInt8Index.load(str(tmp_path / "ivf")),
+        lambda: FlatIndex(4),
+        lambda: load_model("test-tiny"),
+    ):
+        with pytest.raises(RuntimeError, match="is_available"):
+            call()
+    assert not (tmp_path / "out").exists()
+
+
+def test_cli_index_help(capsys):
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["index", "--help"])
+    assert exc.value.code == 0
+    out = capsys.readouterr().out
+    assert "--embeddings_folder" in out and "--index_folder" in out and "--device" in out
 
 
 def test_cli_back_help(capsys):

@@ -1,7 +1,8 @@
 """Port's Flat and IVF-int8 indices against the JAX package's, on the CPU.
 
 The JAX package builds both indices (`FlatIndex`, `IVFInt8Index.from_vectors`
-with k-means) from seeded, tie-free unit vectors and saves them; the port
+with k-means) from seeded, tie-free unit vectors and saves them (the port's
+own `from_vectors` is checked against it too); the port
 loads the same directories (device="cpu": K3's plain version scans), and an
 index the port saves loads in the JAX package.  Search, search_and_reconstruct,
 range_search and the exact re-rank must give identical ids, and scores within
@@ -88,10 +89,10 @@ def test_flat_streams_blocks_and_pads_k(corpus, monkeypatch):
     x, q = corpus
     from clip_retrieval_tpu_torch.index import flat as t_flat
 
-    whole = TFlat(D, vectors=x[:300]).search(q, K)
+    whole = TFlat(D, vectors=x[:300], device="cpu").search(q, K)
     monkeypatch.setattr(t_flat, "_stream_rows", lambda d: 64)  # 5 blocks of ≤ 64 rows
-    _close(TFlat(D, vectors=x[:300]).search(q, K), whole)
-    small = TFlat(D, vectors=x[:4])
+    _close(TFlat(D, vectors=x[:300], device="cpu").search(q, K), whole)
+    small = TFlat(D, vectors=x[:4], device="cpu")
     jv, ji = JFlat(D, vectors=x[:4]).search(q, 6)
     tv, ti = small.search(q, 6)
     _close((tv, ti), (jv, ji))
@@ -178,7 +179,7 @@ def test_chunked_image_matches_jax(saved, monkeypatch):
     for name in ("rows", "scales", "pos", "clist"):
         np.testing.assert_array_equal(tx._device[name].numpy(), want[name], name)
     monkeypatch.setattr(t_ivf, "_UPLOAD_ROWS", 100)  # many scatter blocks, one ending mid-list
-    part = t_ivf.build_chunked_image(tx.q_vectors, tx.scales, tx.list_offsets, lc, lo=5, hi=9)
+    part = t_ivf.build_chunked_image(tx.q_vectors, tx.scales, tx.list_offsets, lc, lo=5, hi=9, device="cpu")
     jpart = j_ivf.build_chunked_image(tx.q_vectors, tx.scales, tx.list_offsets, lc, lo=5, hi=9)
     for name in ("rows", "scales", "pos", "clist"):
         np.testing.assert_array_equal(part[name].numpy(), jpart[name], name)
@@ -193,22 +194,45 @@ def test_bucket_helpers_match_jax(n):
     assert t_ivf.chunk_budget(counts, n) == j_ivf.chunk_budget(counts, n)
 
 
-def test_empty_index_and_unported_builders():
+def test_empty_index_and_unported_builders(saved, corpus):
+    """An empty index answers −inf / −1; `from_vectors`, once unported, now
+    builds with the port's k-means and serves like the JAX-built index."""
     empty = TIVF(D, np.zeros((2, D), np.float32), np.zeros(3, np.int64), np.zeros(0, np.int64),
                  np.zeros((0, D), np.int8), np.zeros(0, np.float32), device="cpu")
     vals, ids = empty.search(np.ones((2, D), np.float32), 3)
     assert (ids == -1).all() and np.isneginf(vals).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TIVF.from_vectors(np.zeros((10, D), np.float32), nlist=2)
+    x, q = corpus
+    jx = JIVF.load(str(saved / "ivf"))
+    tx = TIVF.from_vectors(x, nlist=NLIST, nprobe=NLIST, seed=0, device="cpu")
+    jx.nprobe, jx.exact_topk = NLIST, True  # every list probed: both answers are the exact int8 top-k
+    assert (tx.ntotal, tx.nlist) == (N, NLIST)
+    _close(tx.search(q, K), jx.search(q, K))
 
 
 @pytest.mark.parametrize("kind,sharded", [("flat_int8", False), ("ivfpq", False), ("ivf_int8", True)])
 def test_load_index_names_the_roadmap_for_unported_tiers(tmp_path, kind, sharded):
-    os.makedirs(tmp_path / "ix")
-    with open(tmp_path / "ix" / "header.json", "w") as f:
-        json.dump({"type": kind, "d": D}, f)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_index(str(tmp_path / "ix"), sharded=sharded, device="cpu")
+    """The sharded IVF tier still names its ROADMAP item; flat_int8 and ivfpq
+    are ported now and load as their classes."""
+    from clip_retrieval_tpu_torch.index.ivfpq import IVFPQIndex
+    from clip_retrieval_tpu_torch.index.sharded_flat import ShardedFlatIndex
+
+    path = str(tmp_path / "ix")
+    if kind == "ivf_int8":
+        os.makedirs(path)
+        with open(os.path.join(path, "header.json"), "w") as f:
+            json.dump({"type": kind, "d": D}, f)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            load_index(path, sharded=sharded, device="cpu")
+        return
+    if kind == "flat_int8":
+        ShardedFlatIndex.from_vectors(np.eye(D, dtype=np.float32), device="cpu").save(path)
+        want = ShardedFlatIndex
+    else:
+        IVFPQIndex(D, np.eye(2, D, dtype=np.float32), np.zeros((4, 256, D // 4), np.float32), None,
+                   np.array([0, 1, 1]), np.array([5]), np.zeros((1, 4), np.uint8), device="cpu").save(path)
+        want = IVFPQIndex
+    ix = load_index(path, sharded=sharded, device="cpu")
+    assert isinstance(ix, want) and ix.search(np.eye(D, dtype=np.float32)[:1], 1)[1][0, 0] in (0, 5)
 
 
 def test_readback_is_one_transfer_of_all_parts():
