@@ -67,6 +67,10 @@ MODEL = "ViT-L/14"
 # (heads, dh, S, causal): every attention geometry of the supported towers
 GEOMETRIES = [(12, 64, 50, False), (16, 64, 257, False), (16, 80, 257, False), (16, 88, 257, False),
               (16, 64, 577, False), (12, 64, 77, True)]
+# ragged edges of the 16-row / 16-key tiling, B=3: (heads, dh, S); dh 20 takes the non-vectorised route
+EDGE_GEOMETRIES = [(12, 64, s) for s in (1, 16, 17, 65, 129)] + [(16, 88, 17), (16, 88, 129), (3, 20, 65)]
+# K2 with Sq != Sk at the edges: (heads, dh, Sq, Sk)
+EDGE_SQ_SK = [(12, 64, 1, 257), (12, 64, 257, 1), (12, 64, 77, 257)]
 BF16_MAX_ABS, BF16_MIN_COS, F32_MAX_ABS = 2e-2, 0.9999, 1e-4
 TOWER_MIN_COS = 0.999  # tests/test_models/test_clip_parity.py:101-102
 WORK_DIR = os.path.join("build", "chip_smoke")
@@ -153,15 +157,18 @@ def check_k1(flash, q, k, v, heads: int, causal: bool) -> float:
 
 def phase_kernels(flash) -> float:
     """K1 against its plain version on the card at every tower geometry,
-    B=4; returns the worst bf16 max abs error."""
+    B=4, and at the tiling's ragged edges (EDGE_GEOMETRIES, causal and not),
+    B=3; returns the worst bf16 max abs error."""
     import torch
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
+    cases = [(4, *geo) for geo in GEOMETRIES]
+    cases += [(3, heads, dh, s, causal) for heads, dh, s in EDGE_GEOMETRIES for causal in (False, True)]
     worst_bf16 = 0.0
     for dtype in (torch.bfloat16, torch.float32):
-        for heads, dh, s, causal in GEOMETRIES:
-            q, k, v = (torch.randn(4, s, heads * dh, generator=gen, device="cuda").to(dtype) for _ in range(3))
+        for b, heads, dh, s, causal in cases:
+            q, k, v = (torch.randn(b, s, heads * dh, generator=gen, device="cuda").to(dtype) for _ in range(3))
             err = check_k1(flash, q, k, v, heads, causal)
             if dtype == torch.bfloat16:
                 worst_bf16 = max(worst_bf16, err)
@@ -179,23 +186,26 @@ def check_k2(flash, q, k, v, causal: bool) -> float:
 
 def phase_k2(flash) -> float:
     """K2 against its plain version on the card at every tower geometry in the
-    (B, H, S, dh) layout, bf16 and f32, causal and not, plus Sq != Sk; B=4.
+    (B, H, S, dh) layout, bf16 and f32, causal and not, plus Sq != Sk, B=4;
+    and at the tiling's ragged edges (EDGE_GEOMETRIES and EDGE_SQ_SK), B=3.
     Returns the worst bf16 max abs error."""
     import torch
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
-    shapes = [(heads, dh, s, s) for heads, dh, s, _ in GEOMETRIES] + [(16, 64, 257, 77), (12, 64, 50, 300)]
+    shapes = [(4, heads, dh, s, s) for heads, dh, s, _ in GEOMETRIES] + [(4, 16, 64, 257, 77), (4, 12, 64, 50, 300)]
+    shapes += [(3, heads, dh, s, s) for heads, dh, s in EDGE_GEOMETRIES] + [(3, *geo) for geo in EDGE_SQ_SK]
     worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
     for dtype in worst:
-        for heads, dh, sq, sk in shapes:
+        for b, heads, dh, sq, sk in shapes:
             for causal in (False, True):
-                q = torch.randn(4, heads, sq, dh, generator=gen, device="cuda").to(dtype)
-                k, v = (torch.randn(4, heads, sk, dh, generator=gen, device="cuda").to(dtype) for _ in range(2))
+                q = torch.randn(b, heads, sq, dh, generator=gen, device="cuda").to(dtype)
+                k, v = (torch.randn(b, heads, sk, dh, generator=gen, device="cuda").to(dtype) for _ in range(2))
                 worst[dtype] = max(worst[dtype], check_k2(flash, q, k, v, causal))
     print(f"  K2 vs plain: {2 * len(shapes)} shapes x bf16/f32 (every tower geometry causal and not, Sq != Sk "
-          f"257/77 and 50/300): bf16 max abs {worst[torch.bfloat16]:.3e} (bar {BF16_MAX_ABS}), f32 max abs "
-          f"{worst[torch.float32]:.3e} (bar {F32_MAX_ABS})")
+          f"257/77 and 50/300, ragged edges S 1/16/17/65/129 and Sq/Sk 1/257, 257/1, 77/257): bf16 max abs "
+          f"{worst[torch.bfloat16]:.3e} (bar {BF16_MAX_ABS}), f32 max abs {worst[torch.float32]:.3e} "
+          f"(bar {F32_MAX_ABS})")
     return worst[torch.bfloat16]
 
 
@@ -333,12 +343,14 @@ def phase_parity(mapper, gpu: str):
     check(cos_f32 >= 0.9999, "f32 kernel path disagrees with the f32 plain path")
 
 
-def phase_times(flash, mapper, gpu: str) -> tuple[float, float, float, float]:
+def phase_times(flash, mapper, gpu: str) -> tuple[tuple[float, float, float], tuple[float, float, float], float]:
     """Mapper samples/s on device-resident inputs, and K1 against its plain
     version at the main path's two attention shapes in bf16: checked against
-    the plain version's output with the bars of phase_kernels, then timed.
-    Returns (K1 ms, plain ms, SDPA ms) at the image tower's (256, 257, 16x64)
-    and the worst max abs error of the two checks."""
+    the plain version's output with the bars of phase_kernels, then timed
+    beside `F.scaled_dot_product_attention` (not on the path).  Returns
+    ((K1 ms, plain ms, SDPA ms) at the image tower's (256, 257, 16x64), the
+    same at the text tower's (256, 77, 12x64, causal), the worst max abs error
+    of the two checks)."""
     import torch
     import torch.nn.functional as F
 
@@ -392,11 +404,13 @@ def phase_times(flash, mapper, gpu: str) -> tuple[float, float, float, float]:
             times[name].append(cuda_ms(fn, 20))
         k1_ms, plain_ms = float(np.mean(times["K1"])), float(np.mean(times["plain"]))
         sdpa_ms = cuda_ms(sdpa, 20)
+        bound, by = attention_bound_ms(BATCH, heads, s, s, dh, 2)
         print(f"  [{gpu}] K1 ({BATCH}, {s}, {heads}x{dh}{', causal' if causal else ''}) bf16: {k1_ms:.4f} ms/call "
               f"(runs {times['K1']}); plain version {plain_ms:.4f} ms/call (runs {times['plain']}); yardstick "
-              f"F.scaled_dot_product_attention on (B,H,S,dh) {sdpa_ms:.4f} ms/call (not on the path)")
+              f"F.scaled_dot_product_attention on (B,H,S,dh) {sdpa_ms:.4f} ms/call (not on the path); bound "
+              f"{bound:.4f} ms ({by})")
         results.append((k1_ms, plain_ms, sdpa_ms))
-    return (*results[0], worst)
+    return results[0], results[1], worst
 
 
 def attention_bound_ms(b: int, h: int, sq: int, sk: int, dh: int, itemsize: int) -> tuple[float, str]:
@@ -1156,7 +1170,7 @@ def run() -> int:
         phase_parity(mapper, gpu)
 
         phase = "times"
-        k1_ms, plain_ms, sdpa_ms, max_abs_b256 = phase_times(flash, mapper, gpu)
+        (k1_ms, plain_ms, sdpa_ms), k1_text, max_abs_b256 = phase_times(flash, mapper, gpu)
         del mapper
         torch.cuda.empty_cache()
 
@@ -1212,6 +1226,9 @@ def run() -> int:
                          "replaces": replaces, "launches": sum(launches.values()), "launches_by_path": launches,
                          "max_abs_err": err, "ms": ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
                          "library_ms": lib})
+        text_bound, _ = attention_bound_ms(BATCH, 12, 77, 77, 64, 2)
+        line[0]["at_text_shape"] = {"shape": [BATCH, 77, 12, 64], "causal": True, "ms": k1_text[0],
+                                    "plain_ms": k1_text[1], "library_ms": k1_text[2], "bound_ms": text_bound}
     except Exception as e:  # every phase failure ends the run with its phase named
         import traceback
 

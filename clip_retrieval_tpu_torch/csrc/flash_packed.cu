@@ -13,37 +13,60 @@
 //   and Sk may differ from Sq.  The causal mask keeps key j ≤ query row i
 //   (top-left aligned, as the JAX kernel's iota comparison does).
 //
-// Design, and what bounds it on this card:
-// - The TPU kernel holds a whole head's K/V in VMEM.  At S=577, dh=88 that is
-//   ~203 KB of the 227 KB a block may use here, and one block per (batch,
-//   head) would leave most SMs idle, so this kernel streams instead: one
-//   block covers one (batch, head, 64-row query tile) and walks 64-key K/V
-//   tiles through shared memory with an online softmax kept in f32
-//   (FlashAttention-2 style).  The S×S logits never reach device memory.
-// - Heads are read through strides (`Layout`: batch, head and row strides of
-//   q/o and of k/v): K1's packed layout has row stride W and head offset
-//   h·dh, K2's (B, H, S, dh) layout row stride dh and head offset S·dh.  No
-//   head transpose exists before or after the kernel, as on the TPU.
-// - bf16: tensor-core `mma.sync` m16n8k16 with f32 accumulation; each of the
-//   4 warps owns 16 query rows.  dh is zero-padded on chip to a multiple of
-//   16 (the bf16 MMA K-step), so dh=80 and dh=88 (padded to 96) work.
-//   The probabilities stay in registers and feed the P·V product directly.
-// - What bounds it: at CLIP's shapes the roofline bound is bytes, not
-//   operations.  ViT-L/14 at batch 256 moves q, k, v and o once (~0.54 GB;
-//   the re-reads of a head's K/V by its 5 query tiles hit L2) against ~17
-//   GFLOP of MMA work, i.e. ~0.16 ms at 3.35 TB/s against ~0.02 ms at the
-//   bf16 tensor-core peak.  This first version sits well above that bound
-//   because nothing hides load latency: each K/V tile is loaded with plain
-//   loads between two block barriers (no cp.async/TMA double buffering, no
-//   wgmma), and padding costs work (S=257 runs 5 query tiles of 64 for 4.02
-//   tiles of rows).  Those are the levers a later version pulls.
-// - f32: a scalar-FMA kernel with the same tiling and online softmax.  It
-//   exists for f32 callers and parity checks, not for speed.
-// - Masking: keys ≥ S (the ragged last tile at S=257, 577) and, under the
-//   causal flag, keys > query row get -inf before the row max.  Key tiles
-//   above the diagonal are skipped, and the running max is guarded so that
-//   exp(-inf - -inf) never occurs.  K/V rows past S are zero-filled so that
-//   0·V stays 0.
+// Design (bf16), and what bounds it on this card:
+// - On paper bytes bound the call: ViT-L/14 at batch 256 moves q, k, v and o
+//   once (~0.54 GB, 0.161 ms at 3.35 TB/s) for ~17 GFLOP of MMA work.  On the
+//   card the on-chip work bounds it instead (tools/ab_flash.py ablations on an
+//   H100, 700 W: 0.38 ms with no global load at all against 0.43 ms in full;
+//   0.30 ms without the softmax, 0.35 ms without the products): the tensor
+//   products (1.86× the needed work at S=257, from the 64-row granularity)
+//   and the softmax's ~3e8 ex2 on the 16-per-clock MUFU pipe run largely one
+//   after the other, not overlapped.
+// - Two routes, both entries.  dh ≤ 64 with 16-byte-aligned rows (every CLIP
+//   tower's attention) takes the wgmma route; any other dh ≤ 128, or the
+//   non-vectorised case, takes the mma.sync route.
+// - wgmma route: a warpgroup (4 warps) owns 64 query rows; a head's ⌈S/64⌉
+//   groups are split evenly over ⌈groups/2⌉ blocks of up to 2 warpgroups
+//   (grid (splits, heads, batch)), so at S=257 each head's K/V crosses L2 3×
+//   (5× with the earlier 64-row blocks).  S = Q·Kᵀ and O += P·V are wgmma
+//   m64n64k16 with A from registers (Q by ldmatrix, then P) and B read by the
+//   tensor cores from the K/V tile in shared memory, once per warpgroup: V as
+//   the transposed operand, so no V fragment is built by hand.  Tiles are
+//   64 keys × 64 columns in the 128-byte swizzle (dh < 64 zero-padded).
+//   Per warpgroup the products are software-pipelined: S(t) and P(t-1)·V(t-1)
+//   are issued together and the softmax of tile t runs while the second is in
+//   flight.  Every warpgroup issues every product, needed or not: ptxas
+//   serialises (a wait after each wgmma) any wgmma on a path it cannot prove
+//   uniform, which cost more than the work it would skip (measured: idle
+//   warpgroups leaving early, an n16 product for a one-group last tile, and a
+//   second S buffer to issue S(t+1) before the softmax were all slower).
+// - mma.sync route: one warp per 16-row strip (a head's ⌈S/16⌉ strips split
+//   over ⌈strips/8⌉ blocks), m16n8k16 with Q and K fragments by `ldmatrix.x4`
+//   and V by `ldmatrix.x4.trans`; shared rows padded by 8 halves ((DP+8)·2 is
+//   an odd number of 16-byte units), so the 8 rows of each 8×8 matrix fall in
+//   8 distinct bank groups: conflict-free ldmatrix and cp.async.  A tile that
+//   is full and needs no mask runs a straight-line body; only the ragged one
+//   is guarded (branches between each ldmatrix and its MMAs had stalled every
+//   fragment load).
+// - Both: rows and keys are cut to the sequence at 16.  The softmax runs only
+//   on a warp's rows and on the 16-key groups that hold data; a tile past the
+//   last key (or, causal, past the block's last row) loads only its groups,
+//   causal tiles above a warp's diagonal get P = 0, and the mask runs only on
+//   tiles that cross the last key or the diagonal.  K/V stream through a
+//   kStages-deep cp.async ring (16-byte cp.async.cg, zero-fill past the
+//   sequence and past dh), one commit group and one block barrier per tile;
+//   Q is loaded once per warp, asynchronously, and its slot later stages the
+//   output for 16-byte stores.
+// - Math: logits, softmax and accumulation in f32.  Logits are scaled into
+//   the log2 domain by one FFMA with the running max folded in and
+//   exponentiated with ex2.approx; the running max is guarded so that (-inf) -
+//   (-inf) never occurs.  The probabilities stay in registers (the C
+//   fragments of two n-tiles are the A fragment of one k-step), rounded to
+//   bf16 before P·V as the plain version casts them to v's dtype; row sums
+//   stay f32.  The non-vectorised route is the same body with synchronous
+//   element loads and stores.
+// - f32: a scalar-FMA kernel with 32-row query tiles streaming 64-key tiles.
+//   It exists for f32 callers and parity checks, not for speed.
 //
 // Bound from Python with ctypes (plain C interface below); the wrappers are
 // `clip_retrieval_tpu_torch/ops/flash.py::flash_attention_packed` (K1) and
@@ -56,9 +79,10 @@
 
 namespace {
 
-constexpr int kBM = 64;       // query rows per block
-constexpr int kBN = 64;       // keys per streamed tile
-constexpr int kThreads = 128; // 4 warps
+constexpr int kBN = 64;        // keys per streamed tile
+constexpr int kStages = 4;     // depth of the K/V cp.async ring (tiles ahead: 3 on mma.sync, 2 on wgmma)
+constexpr int kMaxWarps = 8;   // warps of an mma.sync block, one 16-row strip each
+constexpr int kThreads = 128;  // threads of an f32 block
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Element strides of one attention call: q and o share theirs, k and v theirs.
@@ -78,170 +102,203 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
   return *reinterpret_cast<uint32_t*>(&p);
 }
 
-// Copy rows [r0, r0 + 64) of one head into a [64][LD] shared tile; rows at or
-// past `seq` and columns at or past `dh` are zero.  `width` is the row stride
-// in elements.  `vec` selects 16-byte loads (dh and every stride % 8 == 0,
-// 16-byte aligned base pointers).
-template <int DP, int LD>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst, const __nv_bfloat16* src, int r0,
-                                               int seq, int width, int dh, bool vec) {
-  if (vec) {
+// Rows [r0, r0 + nrows) of up to two same-layout sources (q, or k and v) into
+// shared tiles dst[s][nrows][DP + 8]; rows at or past `seq` and columns at or
+// past `dh` are zero.  `stride` is the row stride in elements; threads t of nt
+// share the work.  VEC: 16-byte cp.async (dh and every stride % 8 == 0,
+// 16-byte aligned base pointers), in the caller's commit group, each thread
+// keeping one column chunk and walking rows; otherwise synchronous element
+// copies.
+template <int DP, bool VEC, int NSRC>
+__device__ __forceinline__ void load_rows(__nv_bfloat16* const (&dst)[NSRC], const __nv_bfloat16* const (&src)[NSRC],
+                                          int r0, int nrows, int seq, int stride, int dh, int t, int nt) {
+  constexpr int LD = DP + 8;
+  if constexpr (VEC) {
     constexpr int kChunks = DP / 8;
-    for (int idx = threadIdx.x; idx < 64 * kChunks; idx += kThreads) {
-      const int r = idx / kChunks, c = (idx % kChunks) * 8;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (r0 + r < seq && c < dh)
-        val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * width + c);
-      *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
+    const int step = nt / kChunks, c = (t % kChunks) * 8;
+    if (t >= step * kChunks) return;
+    for (int r = t / kChunks; r < nrows; r += step) {
+      const bool ok = r0 + r < seq && c < dh;
+      const size_t off = ok ? (size_t)(r0 + r) * stride + c : 0;
+#pragma unroll
+      for (int i = 0; i < NSRC; ++i) cp_async16(dst[i] + r * LD + c, src[i] + off, ok ? 16 : 0);
     }
   } else {
-    for (int idx = threadIdx.x; idx < 64 * DP; idx += kThreads) {
+    for (int idx = t; idx < nrows * DP; idx += nt) {
       const int r = idx / DP, c = idx % DP;
-      __nv_bfloat16 val = __float2bfloat16(0.f);
-      if (r0 + r < seq && c < dh) val = src[(size_t)(r0 + r) * width + c];
-      dst[r * LD + c] = val;
+      const bool ok = r0 + r < seq && c < dh;
+#pragma unroll
+      for (int i = 0; i < NSRC; ++i)
+        dst[i][r * LD + c] = ok ? src[i][(size_t)(r0 + r) * stride + c] : __float2bfloat16(0.f);
     }
   }
 }
 
-template <int DP>
-__global__ void __launch_bounds__(kThreads)
-    flash_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, Layout L, int dh,
-                      float scale_log2, int causal, int vec) {
-  // +8 halves per row: the 32-bit fragment loads of 8 row groups x 4 column
-  // pairs then hit 32 distinct banks for every DP used here
-  constexpr int LD = DP + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sK = sQ + kBM * LD;
-  __nv_bfloat16* sV = sK + kBN * LD;
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;  // mma fragment row group / column pair
-  const int m0 = blockIdx.x * kBM;
-  const size_t qbase = (size_t)blockIdx.z * L.q_batch + (size_t)blockIdx.y * L.q_head;
-  const size_t kbase = (size_t)blockIdx.z * L.k_batch + (size_t)blockIdx.y * L.k_head;
-  const bool use_vec = vec != 0;
-
-  load_tile_bf16<DP, LD>(sQ, q + qbase, m0, L.sq, L.q_row, dh, use_vec);
-  __syncthreads();
-
-  // this warp's 16 query rows as A fragments, one per 16-wide K-step
-  uint32_t qa[DP / 16][4];
-  {
-    const __nv_bfloat16* qw = sQ + (warp * 16) * LD;
+// The online softmax over one 16-row strip × kBN-key tile of logits s (the
+// m16n8 C-fragment layout of 8 n-tiles, raw q·k): mask where `need_mask` says,
+// update the running max m_run (log2 domain) and partial row sums l_run, turn
+// s into p = 2^(s·scale − m) in place, and return in alpha the factor by which
+// the caller rescales the output accumulators of rows g and g+8.  Only the
+// first kg 16-key groups hold computed logits unless FULL (all of them, no
+// mask).
+template <bool FULL>
+__device__ __forceinline__ void online_softmax(float (&s)[kBN / 8][4], float (&alpha)[2], float (&m_run)[2],
+                                               float (&l_run)[2], int kg, bool need_mask, int n0, int w_row, int sk,
+                                               int causal, float scale_log2, int lane) {
+  constexpr int NT = kBN / 8;
+  const int g = lane >> 2, t4 = lane & 3;
+  if (!FULL && need_mask) {
 #pragma unroll
-    for (int ks = 0; ks < DP / 16; ++ks) {
-      const int c = ks * 16 + t4 * 2;
-      qa[ks][0] = *reinterpret_cast<const uint32_t*>(qw + g * LD + c);
-      qa[ks][1] = *reinterpret_cast<const uint32_t*>(qw + (g + 8) * LD + c);
-      qa[ks][2] = *reinterpret_cast<const uint32_t*>(qw + g * LD + c + 8);
-      qa[ks][3] = *reinterpret_cast<const uint32_t*>(qw + (g + 8) * LD + c + 8);
-    }
-  }
-
-  float acc[DP / 8][4];
-#pragma unroll
-  for (int i = 0; i < DP / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  float m_run[2] = {-INFINITY, -INFINITY};  // running max (log2 domain), rows g and g+8
-  float l_run[2] = {0.f, 0.f};              // this thread's partial row sums
-
-  const int row0 = m0 + warp * 16 + g;  // global query row of fragment elements 0,1
-  const int n_end = causal ? min(L.sk, m0 + kBM) : L.sk;
-  const unsigned short* sVu = reinterpret_cast<const unsigned short*>(sV);
-
-  for (int n0 = 0; n0 < n_end; n0 += kBN) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile_bf16<DP, LD>(sK, k + kbase, n0, L.sk, L.k_row, dh, use_vec);
-    load_tile_bf16<DP, LD>(sV, v + kbase, n0, L.sk, L.k_row, dh, use_vec);
-    __syncthreads();
-
-    // S = Q·Kᵀ for 16 rows x 64 keys: 8 n-tiles of m16n8
-    float s[kBN / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kBN / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < DP / 16; ++ks) {
-#pragma unroll
-      for (int nt = 0; nt < kBN / 8; ++nt) {
-        const __nv_bfloat16* kr = sK + (nt * 8 + g) * LD + ks * 16 + t4 * 2;
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kr);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(kr + 8);
-        mma_bf16_16816(s[nt], qa[ks], b0, b1);
-      }
-    }
-
-    // scale into the log2 domain, mask, online softmax update
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int nt = 0; nt < kBN / 8; ++nt) {
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = n0 + nt * 8 + t4 * 2 + (e & 1);
-        const int row = row0 + (e >> 1) * 8;
-        float x = s[nt][e] * scale_log2;
-        if (col >= L.sk || (causal && col > row)) x = -INFINITY;
-        s[nt][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        const int row = w_row + g + (e >> 1) * 8;
+        if (col >= sk || (causal && col > row)) s[nt][e] = -INFINITY;
       }
-    }
-    float alpha[2], m_use[2];
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffff, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffff, mx[r], 2));
-      const float m_new = fmaxf(m_run[r], mx[r]);
-      m_use[r] = (m_new == -INFINITY) ? 0.f : m_new;  // no (-inf) - (-inf)
-      alpha[r] = exp2f(m_run[r] - m_use[r]);
-      m_run[r] = m_new;
+  for (int nt = 0; nt < NT; ++nt)
+    if (FULL || nt < 2 * kg) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[nt][0], s[nt][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[nt][2], s[nt][3]));
     }
-    float rs[2] = {0.f, 0.f};
+  float m_use[2];
 #pragma unroll
-    for (int nt = 0; nt < kBN / 8; ++nt) {
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffff, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffff, mx[r], 2));
+    const float m_new = fmaxf(m_run[r], mx[r] * scale_log2);
+    m_use[r] = (m_new == -INFINITY) ? 0.f : m_new;  // no (-inf) - (-inf)
+    alpha[r] = ex2(m_run[r] - m_use[r]);
+    m_run[r] = m_new;
+    l_run[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+    if (FULL || nt < 2 * kg) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[nt][e] - m_use[e >> 1]);
+        const float p = ex2(fmaf(s[nt][e], scale_log2, -m_use[e >> 1]));
         s[nt][e] = p;
-        rs[e >> 1] += p;
+        l_run[e >> 1] += p;
       }
     }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + rs[r];
-#pragma unroll
-    for (int dt = 0; dt < DP / 8; ++dt) {
-      acc[dt][0] *= alpha[0];
-      acc[dt][1] *= alpha[0];
-      acc[dt][2] *= alpha[1];
-      acc[dt][3] *= alpha[1];
-    }
+}
 
-    // O += P·V: the C fragments of two adjacent n-tiles are the A fragment
-    // of one 16-key K-step, so P never leaves registers
+// Scale the output accumulators of rows g and g+8 (NA n-tiles of 8 columns).
+template <int NA>
+__device__ __forceinline__ void rescale(float (&acc)[NA][4], const float (&alpha)[2]) {
 #pragma unroll
-    for (int kk = 0; kk < kBN / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const int kr = kk * 16 + t4 * 2;
-#pragma unroll
-      for (int dt = 0; dt < DP / 8; ++dt) {
-        const int c = dt * 8 + g;
-        const uint32_t b0 = (uint32_t)sVu[kr * LD + c] | ((uint32_t)sVu[(kr + 1) * LD + c] << 16);
-        const uint32_t b1 = (uint32_t)sVu[(kr + 8) * LD + c] | ((uint32_t)sVu[(kr + 9) * LD + c] << 16);
-        mma_bf16_16816(acc[dt], pa, b0, b1);
-      }
-    }
+  for (int dt = 0; dt < NA; ++dt) {
+    acc[dt][0] *= alpha[0];
+    acc[dt][1] *= alpha[0];
+    acc[dt][2] *= alpha[1];
+    acc[dt][3] *= alpha[1];
   }
+}
 
-  // full row sums live across the 4 threads of a quad
+// P of 16 keys (two n-tiles of p) as the bf16 A fragment of one k-step.
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[4], const float (&p0)[4], const float (&p1)[4]) {
+  pa[0] = pack_bf16(p0[0], p0[1]);
+  pa[1] = pack_bf16(p0[2], p0[3]);
+  pa[2] = pack_bf16(p1[0], p1[1]);
+  pa[3] = pack_bf16(p1[2], p1[3]);
+}
+
+// One K/V tile for one warp's 16-row strip on mma.sync: S = Q·Kᵀ, the online
+// softmax, O += P·V.  FULL: all kBN keys hold data and need no mask, so the
+// body is straight-line code (the compiler hoists each ldmatrix above the MMAs
+// before it); otherwise only the first kg 16-key groups are computed.
+template <int DP, bool FULL>
+__device__ __forceinline__ void attend_tile(const __nv_bfloat16* sK, const __nv_bfloat16* sV,
+                                            const uint32_t (&qa)[DP / 16][4], float (&acc)[DP / 8][4],
+                                            float (&m_run)[2], float (&l_run)[2], int kg, bool need_mask, int n0,
+                                            int w_row, int sk, int causal, float scale_log2, int lane) {
+  constexpr int LD = DP + 8, KT = DP / 16, NG = kBN / 16;
+  // ldmatrix lane offsets: K (non-transposed) and V (transposed) 16×16 blocks
+  const int k_key = (lane & 7) + ((lane >> 4) << 3), k_col = ((lane >> 3) & 1) * 8;
+  const int v_key = (lane & 7) + (((lane >> 3) & 1) << 3), v_col = (lane >> 4) * 8;
+
+  float s[2 * NG][4];
+#pragma unroll
+  for (int nt = 0; nt < 2 * NG; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < KT; ++ks)
+#pragma unroll
+    for (int np = 0; np < NG; ++np)
+      if (FULL || np < kg) {
+        uint32_t b[4];
+        ldsm_x4(b, sK + (np * 16 + k_key) * LD + ks * 16 + k_col);
+        mma_bf16_16816(s[2 * np], qa[ks], b[0], b[1]);
+        mma_bf16_16816(s[2 * np + 1], qa[ks], b[2], b[3]);
+      }
+
+  float alpha[2];
+  online_softmax<FULL>(s, alpha, m_run, l_run, kg, need_mask, n0, w_row, sk, causal, scale_log2, lane);
+  rescale(acc, alpha);
+
+  // O += P·V: P in registers as bf16 A fragments, V by ldmatrix.trans
+#pragma unroll
+  for (int kk = 0; kk < NG; ++kk)
+    if (FULL || kk < kg) {
+      uint32_t pa[4];
+      pack_p(pa, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int dp = 0; dp < DP / 16; ++dp) {
+        uint32_t b[4];
+        ldsm_x4_trans(b, sV + (kk * 16 + v_key) * LD + dp * 16 + v_col);
+        mma_bf16_16816(acc[2 * dp], pa, b[0], b[1]);
+        mma_bf16_16816(acc[2 * dp + 1], pa, b[2], b[3]);
+      }
+    }
+}
+
+// O / l of one warp's 16-row strip as bf16 through its shared slot sQ
+// ([16][DP + 8], free once Q is in registers), then whole rows out.
+template <int DP, bool VEC>
+__device__ __forceinline__ void store_strip(__nv_bfloat16* ob, __nv_bfloat16* sQ, const float (&acc)[DP / 8][4],
+                                            const float (&l_run)[2], int w_row, int sq, int q_row, int dh, int lane) {
+  constexpr int LD = DP + 8;
+  const int g = lane >> 2, t4 = lane & 3;
   float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -250,16 +307,314 @@ __global__ void __launch_bounds__(kThreads)
     l += __shfl_xor_sync(0xffffffff, l, 2);
     inv[r] = 1.f / l;
   }
-  __nv_bfloat16* ob = o + qbase;
+  __syncwarp();
 #pragma unroll
   for (int dt = 0; dt < DP / 8; ++dt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = row0 + (e >> 1) * 8;
-      const int col = dt * 8 + t4 * 2 + (e & 1);
-      if (row < L.sq && col < dh) ob[(size_t)row * L.q_row + col] = __float2bfloat16(acc[dt][e] * inv[e >> 1]);
+    __nv_bfloat16* dst = sQ + g * LD + dt * 8 + t4 * 2;
+    *reinterpret_cast<uint32_t*>(dst) = pack_bf16(acc[dt][0] * inv[0], acc[dt][1] * inv[0]);
+    *reinterpret_cast<uint32_t*>(dst + 8 * LD) = pack_bf16(acc[dt][2] * inv[1], acc[dt][3] * inv[1]);
+  }
+  __syncwarp();
+  const int rows = min(16, sq - w_row);
+  if constexpr (VEC) {
+    constexpr int kChunks = DP / 8;
+    for (int idx = lane; idx < rows * kChunks; idx += 32) {
+      const int r = idx / kChunks, c = (idx % kChunks) * 8;
+      if (c < dh)
+        *reinterpret_cast<uint4*>(ob + (size_t)(w_row + r) * q_row + c) =
+            *reinterpret_cast<const uint4*>(sQ + r * LD + c);
+    }
+  } else {
+    for (int idx = lane; idx < rows * DP; idx += 32) {
+      const int r = idx / DP, c = idx % DP;
+      if (c < dh) ob[(size_t)(w_row + r) * q_row + c] = sQ[r * LD + c];
     }
   }
+}
+
+template <int DP, bool VEC>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+    flash_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, Layout L, int dh,
+                      float scale_log2, int causal) {
+  constexpr int LD = DP + 8;   // see the note above: conflict-free ldmatrix and cp.async
+  constexpr int KT = DP / 16;  // MMA k-steps over dh
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sKV = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [kStages][K, V][kBN][LD]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  __nv_bfloat16* sQ = sKV + kStages * 2 * kBN * LD + warp * 16 * LD;  // this warp's [16][LD]
+
+  // this block's strips of the head, split evenly over gridDim.x blocks; one per warp
+  const int strips = (L.sq + 15) / 16;
+  const int s_begin = (int)((long long)blockIdx.x * strips / gridDim.x);
+  const int s_end = (int)((long long)(blockIdx.x + 1) * strips / gridDim.x);
+  const bool has_rows = s_begin + warp < s_end;
+  const int w_row = (s_begin + warp) * 16;    // this warp's first query row
+  const int row_end = min(s_end * 16, L.sq);  // past the block's last query row
+  // keys the block needs, and this warp: causal stops at the last row
+  const int kv_end = causal ? min(L.sk, row_end) : L.sk;
+  const int w_kv_end = !has_rows ? 0 : causal ? min(L.sk, min(w_row + 16, L.sq)) : L.sk;
+  const int ntiles = (kv_end + kBN - 1) / kBN;
+
+  const size_t qbase = (size_t)blockIdx.z * L.q_batch + (size_t)blockIdx.y * L.q_head;
+  const size_t kbase = (size_t)blockIdx.z * L.k_batch + (size_t)blockIdx.y * L.k_head;
+  const __nv_bfloat16* const kv_src[2] = {k + kbase, v + kbase};
+
+  // prologue: this warp's Q rows (its own group), then the first kStages-1 K/V tiles
+  {
+    __nv_bfloat16* const dst[1] = {sQ};
+    const __nv_bfloat16* const src[1] = {q + qbase};
+    load_rows<DP, VEC>(dst, src, w_row, has_rows ? 16 : 0, L.sq, L.q_row, dh, lane, 32);
+  }
+  cp_async_commit();
+  auto load_tile = [&](int t) {
+    __nv_bfloat16* const dst[2] = {sKV + (t % kStages) * 2 * kBN * LD, sKV + ((t % kStages) * 2 + 1) * kBN * LD};
+    const int n0 = t * kBN;
+    load_rows<DP, VEC>(dst, kv_src, n0, min(kBN, (kv_end - n0 + 15) / 16 * 16), L.sk, L.k_row, dh, threadIdx.x,
+                       blockDim.x);
+  };
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < ntiles) load_tile(t);
+    cp_async_commit();  // empty groups keep the count uniform
+  }
+  cp_async_wait<kStages - 1>();
+  __syncwarp();
+
+  // Q as A fragments, one per k-step
+  uint32_t qa[KT][4];
+#pragma unroll
+  for (int ks = 0; ks < KT; ++ks) ldsm_x4(qa[ks], sQ + (lane & 15) * LD + ks * 16 + (lane >> 4) * 8);
+
+  float acc[DP / 8][4];
+#pragma unroll
+  for (int i = 0; i < DP / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};  // running max (log2 domain), rows g and g+8
+  float l_run[2] = {0.f, 0.f};              // this thread's partial row sums
+
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait<kStages - 2>();  // this thread's copies of tile t have landed
+    __syncthreads();               // everyone's have, and tile t-1's slot is free
+    if (t + kStages - 1 < ntiles) load_tile(t + kStages - 1);
+    cp_async_commit();
+
+    const int n0 = t * kBN;
+    const int kn = min(kBN, w_kv_end - n0);  // keys of this tile the warp needs
+    if (kn <= 0) continue;                   // no rows, or causal: the tile is above the warp's diagonal
+    const int kg = (kn + 15) / 16;           // 16-key groups computed
+    // mask only where the computed keys cross the last key or the causal diagonal
+    const bool need_mask = n0 + kg * 16 > L.sk || (causal && n0 + kg * 16 - 1 > w_row);
+    const __nv_bfloat16* sK = sKV + (t % kStages) * 2 * kBN * LD;
+    const __nv_bfloat16* sV = sK + kBN * LD;
+    if (kg == kBN / 16 && !need_mask)
+      attend_tile<DP, true>(sK, sV, qa, acc, m_run, l_run, kg, false, n0, w_row, L.sk, causal, scale_log2, lane);
+    else
+      attend_tile<DP, false>(sK, sV, qa, acc, m_run, l_run, kg, need_mask, n0, w_row, L.sk, causal, scale_log2, lane);
+  }
+  cp_async_wait<0>();
+  if (!has_rows) return;
+
+  store_strip<DP, VEC>(o + qbase, sQ, acc, l_run, w_row, L.sq, L.q_row, dh, lane);
+}
+
+// ---------------------------------------------------------------------------
+// The wgmma route: dh ≤ 64 (zero-padded to 64 on chip), vectorised loads.  A
+// warpgroup (4 warps) owns 64 query rows; both products are wgmma m64n64k16
+// with A from registers (Q, then P: each warp's 16 rows in the mma.sync A
+// layout) and B read by the tensor cores straight from the K/V tile in shared
+// memory, once per warpgroup instead of once per warp.
+
+constexpr int kWgMax = 2;                // warpgroups per block
+constexpr int kTileBytes = kBN * 128;    // a 64-key tile of 64 bf16 columns: 128-byte rows
+
+// Descriptor of a shared tile of 128-byte rows in the 128-byte swizzle (16-byte
+// chunk c of row r at chunk c ^ (r & 7); 8-row groups 1024 bytes apart).  The
+// same form serves K as Bᵀ (K-major) and V as B (N-major, transposed operand).
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// d[64×64] (+)= A[64×16]·B[16×64] for the warpgroup.  TRANS_B = 1: B is stored
+// N-contiguous (V rows); 0: B is stored as Bᵀ, K-contiguous (K rows).
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[kBN / 8][4], const uint32_t (&a)[4], uint64_t desc,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %37;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]),
+        "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]),
+        "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
+        "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "n"(TRANS_B), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// After the wait: the accumulators are written now, not when the wgmma was issued.
+__device__ __forceinline__ void wgmma_settle(float (&d)[kBN / 8][4]) {
+#pragma unroll
+  for (int i = 0; i < kBN / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[i][e])::"memory");
+}
+
+// cp.async writes (generic proxy) before wgmma reads (async proxy) of shared memory.
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
+// K and V rows [n0, n0 + kBN) into 128-byte-swizzled tiles; rows ≥ sk and
+// columns ≥ dh are zero, so a ragged tile's unused keys are finite.
+__device__ __forceinline__ void load_kv_sw128(unsigned char* dK, unsigned char* dV, const __nv_bfloat16* k,
+                                              const __nv_bfloat16* v, int n0, int sk, int stride, int dh, int t,
+                                              int nt) {
+  const int c = t & 7, step = nt >> 3;
+  for (int r = t >> 3; r < kBN; r += step) {
+    const bool ok = n0 + r < sk && c * 8 < dh;
+    const size_t off = ok ? (size_t)(n0 + r) * stride + c * 8 : 0;
+    const int so = r * 128 + ((c ^ (r & 7)) << 4);
+    cp_async16(dK + so, k + off, ok ? 16 : 0);
+    cp_async16(dV + so, v + off, ok ? 16 : 0);
+  }
+}
+
+__global__ void __launch_bounds__(kWgMax * 128)
+    flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, Layout L, int dh,
+                       float scale_log2, int causal) {
+  constexpr int DP = 64, LD = DP + 8, NG = kBN / 16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // the K/V ring at a 1024-byte boundary, where the swizzle pattern starts
+  const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  unsigned char* ring = smem_raw + ((1024 - (base & 1023)) & 1023);  // [kStages][K, V][kTileBytes]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(ring + kStages * 2 * kTileBytes) + warp * 16 * LD;
+
+  // this block's 64-row groups of the head, split evenly over gridDim.x blocks; one per warpgroup
+  const int groups = (L.sq + 63) / 64;
+  const int g_begin = (int)((long long)blockIdx.x * groups / gridDim.x);
+  const int g_end = (int)((long long)(blockIdx.x + 1) * groups / gridDim.x);
+  const int w_row = g_begin * 64 + warp * 16;  // this warp's first query row
+  const bool has_rows = w_row < min(g_end * 64, L.sq);
+  const int row_end = min(g_end * 64, L.sq);
+  // keys the block and this warp need: causal stops at the last row
+  const int kv_end = causal ? min(L.sk, row_end) : L.sk;
+  const int w_kv_end = !has_rows ? 0 : causal ? min(L.sk, min(w_row + 16, L.sq)) : L.sk;
+  const int ntiles = (kv_end + kBN - 1) / kBN;
+
+  const size_t qbase = (size_t)blockIdx.z * L.q_batch + (size_t)blockIdx.y * L.q_head;
+  const size_t kbase = (size_t)blockIdx.z * L.k_batch + (size_t)blockIdx.y * L.k_head;
+
+  {
+    __nv_bfloat16* const dst[1] = {sQ};
+    const __nv_bfloat16* const src[1] = {q + qbase};
+    load_rows<DP, true>(dst, src, w_row, has_rows ? 16 : 0, L.sq, L.q_row, dh, lane, 32);
+  }
+  cp_async_commit();
+  auto load_tile = [&](int t) {
+    unsigned char* dst = ring + (t % kStages) * 2 * kTileBytes;
+    load_kv_sw128(dst, dst + kTileBytes, k + kbase, v + kbase, t * kBN, L.sk, L.k_row, dh, threadIdx.x, blockDim.x);
+  };
+#pragma unroll
+  for (int t = 0; t < kStages - 2; ++t) {
+    if (t < ntiles) load_tile(t);
+    cp_async_commit();
+  }
+  cp_async_wait<kStages - 2>();
+  __syncwarp();
+
+  uint32_t qa[DP / 16][4];  // zero for a warp past the sequence: its rows are computed and dropped
+#pragma unroll
+  for (int ks = 0; ks < DP / 16; ++ks) {
+    if (has_rows)
+      ldsm_x4(qa[ks], sQ + (lane & 15) * LD + ks * 16 + (lane >> 4) * 8);
+    else
+      qa[ks][0] = qa[ks][1] = qa[ks][2] = qa[ks][3] = 0u;
+  }
+
+  float acc[DP / 8][4];
+#pragma unroll
+  for (int i = 0; i < DP / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.f, 0.f};
+
+  // Software pipeline over the tiles, per warpgroup: S(t) = Q·K(t)ᵀ and O +=
+  // P(t-1)·V(t-1) are issued together, the softmax of tile t runs while the
+  // second product is in flight, and the output is rescaled once it has landed.
+  // So the ring refills the slot of tile t-2 at step t (kStages ≥ 3).
+  uint32_t pa[NG][4] = {};  // P of the previous tile; zero before the first
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait<kStages - 3>();  // this thread's copies of tile t have landed
+    fence_proxy_async();
+    __syncthreads();               // everyone's have, and tile t-2's products are done
+    if (t + kStages - 2 < ntiles) load_tile(t + kStages - 2);
+    cp_async_commit();
+
+    // Every warpgroup runs both products on every tile, whether it needs the
+    // tile or not (a warpgroup past the sequence, or causal above its diagonal):
+    // a wgmma on a path ptxas cannot prove uniform is serialised.  Rows and
+    // keys a warp does not need get P = 0.
+    const int n0 = t * kBN;
+    const unsigned char* tK = ring + (t % kStages) * 2 * kTileBytes;
+    const unsigned char* tV = ring + ((t + kStages - 1) % kStages) * 2 * kTileBytes + kTileBytes;  // tile t-1
+    const uint64_t dK = sw128_desc(tK), dV = sw128_desc(t > 0 ? tV : tK + kTileBytes);
+
+    float s[kBN / 8][4];
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < DP / 16; ++ks) wgmma_m64n64k16<0>(s, qa[ks], dK + 2 * ks, ks > 0);  // +32 bytes of dh
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < NG; ++kk) wgmma_m64n64k16<1>(acc, pa[kk], dV + kk * (16 * 128 / 16), 1);  // +16 keys
+    wgmma_commit();
+    wgmma_wait<1>();  // S(t) has landed; P(t-1)·V(t-1) may still run
+    wgmma_settle(s);
+
+    float alpha[2] = {1.f, 1.f};
+    const int kn = min(kBN, w_kv_end - n0);
+    if (kn > 0) {
+      const int kg = (kn + 15) / 16;
+      const bool need_mask = n0 + kg * 16 > L.sk || (causal && n0 + kg * 16 - 1 > w_row);
+      if (kg == NG && !need_mask)
+        online_softmax<true>(s, alpha, m_run, l_run, kg, false, n0, w_row, L.sk, causal, scale_log2, lane);
+      else
+        online_softmax<false>(s, alpha, m_run, l_run, kg, need_mask, n0, w_row, L.sk, causal, scale_log2, lane);
+    }
+    wgmma_wait<0>();
+    wgmma_settle(acc);
+    rescale(acc, alpha);
+    const int kg = kn > 0 ? (kn + 15) / 16 : 0;  // no rows here, or above the warp's diagonal: P = 0
+#pragma unroll
+    for (int kk = 0; kk < NG; ++kk) {
+      if (kk < kg)
+        pack_p(pa[kk], s[2 * kk], s[2 * kk + 1]);
+      else
+        pa[kk][0] = pa[kk][1] = pa[kk][2] = pa[kk][3] = 0u;
+    }
+  }
+  // O += P·V of the last tile
+  if (ntiles > 0) {
+    const uint64_t dV = sw128_desc(ring + ((ntiles - 1) % kStages) * 2 * kTileBytes + kTileBytes);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < NG; ++kk) wgmma_m64n64k16<1>(acc, pa[kk], dV + kk * (16 * 128 / 16), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_settle(acc);
+  }
+  cp_async_wait<0>();
+  if (!has_rows) return;
+  store_strip<DP, true>(o + qbase, sQ, acc, l_run, w_row, L.sq, L.q_row, dh, lane);
 }
 
 // f32: 32 query rows per block, 4 threads per row.  Scalar FMAs throughout.
@@ -360,18 +715,47 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <int DP, bool VEC>
+cudaError_t launch_bf16_route(const void* q, const void* k, const void* v, void* o, const Layout& L, int batch,
+                              int heads, int dh, float scale_log2, int causal, cudaStream_t stream) {
+  const int strips = (L.sq + 15) / 16;
+  const int splits = (strips + kMaxWarps - 1) / kMaxWarps;
+  const int warps = (strips + splits - 1) / splits;
+  const size_t smem = ((size_t)kStages * 2 * kBN + (size_t)warps * 16) * (DP + 8) * sizeof(__nv_bfloat16);
+  auto kern = flash_bf16_kernel<DP, VEC>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(splits, heads, batch);
+  kern<<<grid, warps * 32, smem, stream>>>(static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+                                          static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), L, dh,
+                                          scale_log2, causal);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, const Layout& L, int batch, int heads,
+                        int dh, float scale_log2, int causal, cudaStream_t stream) {
+  const int groups = (L.sq + 63) / 64;
+  const int splits = (groups + kWgMax - 1) / kWgMax;
+  const int wgs = (groups + splits - 1) / splits;
+  const size_t smem = 1024 + (size_t)kStages * 2 * kTileBytes + (size_t)wgs * 64 * (64 + 8) * sizeof(__nv_bfloat16);
+  cudaError_t err = cudaFuncSetAttribute(flash_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(splits, heads, batch);
+  flash_wgmma_kernel<<<grid, wgs * 128, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v),
+      static_cast<__nv_bfloat16*>(o), L, dh, scale_log2, causal);
+  return cudaGetLastError();
+}
+
 template <int DP>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, const Layout& L, int batch,
                         int heads, int dh, float scale_log2, int causal, int vec, cudaStream_t stream) {
-  const size_t smem = (size_t)(kBM + 2 * kBN) * (DP + 8) * sizeof(__nv_bfloat16);
-  cudaError_t err = cudaFuncSetAttribute(flash_bf16_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((L.sq + kBM - 1) / kBM, heads, batch);
-  flash_bf16_kernel<DP><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), L, dh, scale_log2, causal, vec);
-  return cudaGetLastError();
+  if (!vec) return launch_bf16_route<DP, false>(q, k, v, o, L, batch, heads, dh, scale_log2, causal, stream);
+  if constexpr (DP <= 64) {
+    return launch_wgmma(q, k, v, o, L, batch, heads, dh, scale_log2, causal, stream);
+  } else {
+    return launch_bf16_route<DP, true>(q, k, v, o, L, batch, heads, dh, scale_log2, causal, stream);
+  }
 }
 
 template <int DP>

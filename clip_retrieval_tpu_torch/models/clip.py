@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import attention as attn_ops
+from ..utils.device import resolve_device
 from .configs import CLIPConfig
 
 # CLIP preprocessing constants (openai/open_clip defaults)
@@ -195,14 +196,15 @@ class CLIP(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def init_clip(cfg: CLIPConfig, seed: int = 0, device: str | torch.device = "cpu") -> CLIP:
+def init_clip(cfg: CLIPConfig, seed: int = 0, device: str | torch.device = "cuda") -> CLIP:
     """Random-init parameters with the JAX package's (openai-style) scales:
     N(0, 1)·width^-½ for attention, MLP-in, patch, class, position and
     projection weights; (2·width)^-½ for MLP-out; 0.02 and 0.01 for the
     text token and position embeddings; LayerNorm 1/0 and zero biases.
     Random numbers come from a `torch.Generator` on `device` seeded with
-    `seed`, so they differ from the JAX package's for the same seed."""
-    device = torch.device(device)
+    `seed`, so they differ from the JAX package's for the same seed.  The
+    default device is CUDA; without a GPU it raises unless given "cpu"."""
+    device = resolve_device(device)
     model = CLIP(cfg, device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)

@@ -24,6 +24,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
+
 H14_LAYER_DIMS = [1024, 2048, 1024, 256, 128, 16, 1]  # after the input dim
 
 
@@ -40,8 +42,8 @@ class MLP:
     autokeras classifiers (ReLU between layers, sigmoid/softmax output)."""
 
     def __init__(self, weights: List[Tuple[np.ndarray, np.ndarray]], relu_last_n_skipped: int = 2,
-                 final_activation: str | None = None, device: str | torch.device = "cpu"):
-        self.device = torch.device(device)
+                 final_activation: str | None = None, device: str | torch.device = "cuda"):
+        self.device = resolve_device(device)
         self.weights = [
             (torch.as_tensor(np.asarray(w, np.float32), device=self.device),
              torch.as_tensor(np.asarray(b, np.float32), device=self.device))
@@ -69,7 +71,7 @@ class MLP:
             return self.forward(x).cpu().numpy()
 
     @classmethod
-    def random(cls, input_dim: int, seed: int = 0, device: str | torch.device = "cpu") -> "MLP":
+    def random(cls, input_dim: int, seed: int = 0, device: str | torch.device = "cuda") -> "MLP":
         """Random-weight instance (tests only), the JAX package's draws."""
         rng = np.random.default_rng(seed)
         dims = [input_dim] + H14_LAYER_DIMS
@@ -95,11 +97,12 @@ def _reference_cache(clip_model: str) -> str:
     return os.path.expanduser("~/.cache/clip_retrieval/" + clip_model.replace("/", "_"))
 
 
-def load_safety_model(clip_model: str, device: str | torch.device = "cpu") -> Optional[MLP]:
+def load_safety_model(clip_model: str, device: str | torch.device = "cuda") -> Optional[MLP]:
     """Load an NSFW scorer for this model's embedding space, or None.
 
     Sources, in order: converted npz in our cache; the reference's torch
     H14 checkpoint (open_clip:ViT-H-14 only, the only space it fits)."""
+    device = resolve_device(device)
     npz_path = os.path.join(cache_folder(clip_model), "nsfw_mlp.npz")
     if os.path.exists(npz_path):
         return load_mlp_npz(npz_path, device)
@@ -122,7 +125,8 @@ def save_mlp_npz(path: str, weights: List[Tuple[np.ndarray, np.ndarray]], final_
     np.savez(path, **arrays)
 
 
-def load_mlp_npz(path: str, device: str | torch.device = "cpu") -> MLP:
+def load_mlp_npz(path: str, device: str | torch.device = "cuda") -> MLP:
+    device = resolve_device(device)
     with np.load(path) as z:
         n = len([k for k in z.files if k.startswith("w")])
         weights = [(z[f"w{i}"], z[f"b{i}"]) for i in range(n)]

@@ -1,15 +1,22 @@
-"""A/B of kernel K1 (`crt_flash_packed`) between two checkouts on one card.
+"""A/B of kernels K1 (`crt_flash_packed`) and K2 (`crt_flash_bhsd`) between checkouts on one card.
 
-    python3 -m clip_retrieval_tpu_torch.tools.ab_flash OTHER_CHECKOUT [--rounds 2]
+    python3 -m clip_retrieval_tpu_torch.tools.ab_flash OTHER_CHECKOUT [MORE_CHECKOUTS ...] [--rounds 2]
 
 Builds `clip_retrieval_tpu_torch/csrc/flash_packed.cu` of this checkout and
-of OTHER_CHECKOUT (for example the parent commit unpacked with `git archive`
-into a git-ignored directory) with the same nvcc flags into
-`build/ab_flash/`, checks that both give the same output on the same inputs,
-and times both with CUDA events at the towers' shapes: the image tower's
-(256, 257, 16×64) and the text tower's (256, 77, 12×64, causal), bf16.  Each
-round runs other, this, this, other, so a drift of the card's clock during
-the run falls on both alike.  Prints one JSON line.
+of each other checkout (for example the parent commit unpacked with `git
+archive` into a git-ignored directory, or a variant of this source) with the
+same nvcc flags into `build/ab_flash/`, in parallel, checks that each gives
+this checkout's output on the same inputs (bf16 max abs and min row cosine),
+reports each build's bf16 kernels as `nvcc -Xptxas -v` gives them
+(registers, spill stores and loads, by mangled name), and times all with
+CUDA events, bf16, at the towers' shapes: K1 at the image tower's (256, 257,
+16×64) and the text tower's (256, 77, 12×64, causal), K2 at (256, 16, 257,
+64) and (256, 12, 77, 64, causal).  `F.scaled_dot_product_attention` on the
+same inputs in the (B, H, S, dh) layout is timed beside them as the
+yardstick; the port never calls it.  Each round runs SDPA, the others, this,
+this, the others in reverse, SDPA, so a drift of the card's clock during the
+run falls on all alike.  `this_over_other` compares with the first other
+checkout.  Prints one JSON line.
 """
 
 from __future__ import annotations
@@ -17,39 +24,75 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
 from ..ops.cuda_build import CHECKOUT, NVCC_FLAGS, nvcc_path
 
-SHAPES = [(256, 257, 16, 64, False), (256, 77, 12, 64, True)]  # (B, S, heads, dh, causal)
-BF16 = 1  # the dtype code of crt_flash_packed
+# (entry, B, S, heads, dh, causal)
+SHAPES = [("packed", 256, 257, 16, 64, False), ("packed", 256, 77, 12, 64, True),
+          ("bhsd", 256, 257, 16, 64, False), ("bhsd", 256, 77, 12, 64, True)]
+BF16 = 1  # the dtype code of both entries
 
 
-def build(root: Path, tag: str) -> ctypes.CDLL:
+def ptxas_report(log: str) -> dict:
+    """{kernel: {registers, spill_stores, spill_loads}} for the bf16 kernels in
+    `nvcc -Xptxas -v` output (mangled names shortened to the kernel and its
+    template arguments)."""
+    report, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            short = re.search(r"(flash_(?:bf16|wgmma)_kernel(?:I\w*?E)?)E", m.group(1))
+            name = short.group(1) if short else None
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            report.setdefault(name, {}).update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            report.setdefault(name, {})["registers"] = int(m.group(1))
+    return report
+
+
+def build(root: Path, tag: str) -> tuple[ctypes.CDLL, dict]:
     out = CHECKOUT / "build" / "ab_flash" / f"libflash_{tag}.so"
     out.parent.mkdir(parents=True, exist_ok=True)
     src = root / "clip_retrieval_tpu_torch" / "csrc" / "flash_packed.cu"
-    subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(src)], check=True)
+    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out), str(src)], capture_output=True,
+                          text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr[-4000:]}")
     lib = ctypes.CDLL(str(out))
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.crt_flash_packed.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp]
     lib.crt_flash_packed.restype = ci
-    return lib
+    lib.crt_flash_bhsd.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, vp]
+    lib.crt_flash_bhsd.restype = ci
+    return lib, ptxas_report(proc.stdout + proc.stderr)
 
 
-def launcher(lib: ctypes.CDLL, q, k, v, o, heads: int, causal: bool):
-    b, s, w = q.shape
+def launcher(lib: ctypes.CDLL, entry: str, q, k, v, o, heads: int, causal: bool):
     stream = torch.cuda.current_stream().cuda_stream
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s, heads, w // heads, int(causal), BF16, 1,
-            stream)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
+    if entry == "packed":
+        b, s, w = q.shape
+        fn, args = lib.crt_flash_packed, (*ptrs, b, s, heads, w // heads, int(causal), BF16, 1, stream)
+    else:
+        b, h, s, dh = q.shape
+        fn, args = lib.crt_flash_bhsd, (*ptrs, b, h, s, k.shape[2], dh, int(causal), BF16, 1, stream)
 
     def run():
-        rc = lib.crt_flash_packed(*args)
+        rc = fn(*args)
         if rc != 0:
-            raise RuntimeError(f"crt_flash_packed returned {rc}")
+            raise RuntimeError(f"crt_flash_{entry} returned {rc}")
 
     return run
 
@@ -66,30 +109,48 @@ def cuda_ms(fn, iters: int) -> float:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("other", type=Path, help="root of the other checkout")
+    ap.add_argument("others", type=Path, nargs="+", help="roots of the other checkouts")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--iters", type=int, default=50)
     args = ap.parse_args(argv)
-    libs = {"other": build(args.other.resolve(), "other"), "this": build(CHECKOUT, "this")}
+    roots = {f"other{i}": root.resolve() for i, root in enumerate(args.others)}
+    roots["this"] = CHECKOUT
+    with ThreadPoolExecutor(len(roots)) as pool:
+        built = dict(zip(roots, pool.map(build, roots.values(), roots)))
+    libs = {name: lib for name, (lib, _) in built.items()}
+    others = [name for name in libs if name != "this"]
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    for b, s, heads, dh, causal in SHAPES:
-        q, k, v = (torch.randn(b, s, heads * dh, generator=gen, device="cuda").bfloat16() for _ in range(3))
+    for entry, b, s, heads, dh, causal in SHAPES:
+        shape = (b, s, heads * dh) if entry == "packed" else (b, heads, s, dh)
+        q, k, v = (torch.randn(*shape, generator=gen, device="cuda").bfloat16() for _ in range(3))
+        if entry == "packed":  # SDPA takes (B, H, S, dh): the head transposes are not timed
+            qs, ks, vs = (x.view(b, s, heads, dh).transpose(1, 2).contiguous() for x in (q, k, v))
+        else:
+            qs, ks, vs = q, k, v
         outs = {name: torch.empty_like(q) for name in libs}
-        runs = {name: launcher(lib, q, k, v, outs[name], heads, causal) for name, lib in libs.items()}
-        for fn in runs.values():
-            fn()
+        runs = {name: launcher(lib, entry, q, k, v, outs[name], heads, causal) for name, lib in libs.items()}
+        runs["sdpa"] = lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
+        for fn in runs.values():  # warm up; SDPA's first calls pick a backend
+            for _ in range(3):
+                fn()
         torch.cuda.synchronize()
-        times: dict[str, list[float]] = {name: [] for name in libs}
+        times: dict[str, list[float]] = {name: [] for name in runs}
         for _ in range(args.rounds):
-            for name in ("other", "this", "this", "other"):
+            for name in ("sdpa", *others, "this", "this", *others[::-1], "sdpa"):
                 times[name].append(cuda_ms(runs[name], args.iters))
-        rows.append({"shape": [b, s, heads, dh], "causal": causal,
-                     "max_abs_diff": (outs["this"].float() - outs["other"].float()).abs().max().item(),
-                     "ms": times, "this_over_other": sum(times["this"]) / sum(times["other"])})
+        a = outs["this"].float().reshape(-1, dh)
+        diff = {name: {"max_abs_diff": (a - outs[name].float().reshape(-1, dh)).abs().max().item(),
+                       "min_row_cos": F.cosine_similarity(a, outs[name].float().reshape(-1, dh), dim=-1).min().item()}
+                for name in others}
+        mean = {name: sum(t) / len(t) for name, t in times.items()}
+        rows.append({"entry": entry, "shape": [b, s, heads, dh], "causal": causal, "vs_this": diff, "ms": times,
+                     "mean_ms": mean, "this_over_other": mean["this"] / mean[others[0]],
+                     "this_over_sdpa": mean["this"] / mean["sdpa"]})
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    print(json.dumps({"card": card, "other": str(args.other), "rows": rows}))
+    print(json.dumps({"card": card, "others": {name: str(root) for name, root in roots.items()},
+                      "ptxas": {name: report for name, (_, report) in built.items()}, "rows": rows}))
     return 0
 
 

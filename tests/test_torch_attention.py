@@ -24,6 +24,9 @@ ATOL, RTOL = 2e-5, 1e-4
 # (heads, dh, S): B/32|B/16 (12, 64, 50), L/14 (16, 64, 257), text towers
 # (8, 64, 77), H/14 (16, 80, 257), g/14 (16, 88, 257)
 GEOMETRIES = [(12, 64, 50), (16, 64, 257), (8, 64, 77), (16, 80, 257), (16, 88, 257)]
+# the ragged edges of the kernel's 16-row / 16-key tiling: one row, one full
+# strip, one row past a strip, one past a 64-key tile, one past two
+EDGES = [(4, 64, s) for s in (1, 16, 17, 65, 129)]
 
 
 def _packed_inputs(heads, dh, seq, b=2, seed=1):
@@ -37,7 +40,7 @@ def _split(x, heads):  # numpy (B, S, W) → (B, H, S, dh)
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("heads,dh,seq", GEOMETRIES)
+@pytest.mark.parametrize("heads,dh,seq", GEOMETRIES + EDGES)
 def test_packed_matches_jax(heads, dh, seq, causal):
     q, k, v = _packed_inputs(heads, dh, seq)
     before = t_flash.flash_attention_packed.launches
@@ -91,12 +94,15 @@ def test_kernel_build_refuses_outside_a_checkout(monkeypatch, tmp_path):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_cuda_kernel_matches_plain_version(dtype):
-    """The kernel on the card against its plain version on the same inputs:
-    bf16 max abs ≤ 2e-2 against the f32 plain result, f32 atol 1e-4."""
+    """The kernel on the card against its plain version on the same inputs,
+    tower geometries and the tiling's ragged edges: bf16 max abs ≤ 2e-2
+    against the f32 plain result, f32 atol 1e-4."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     dt = getattr(torch, dtype)
-    for heads, dh, seq, causal in [(12, 64, 50, False), (16, 88, 257, False), (16, 64, 577, False), (12, 64, 77, True)]:
+    cases = [(12, 64, 50, False), (16, 88, 257, False), (16, 64, 577, False), (12, 64, 77, True)]
+    cases += [(heads, dh, seq, causal) for heads, dh, seq in EDGES for causal in (False, True)]
+    for heads, dh, seq, causal in cases:
         q, k, v = (torch.from_numpy(x).cuda().to(dt) for x in _packed_inputs(heads, dh, seq, b=4))
         before = t_flash.flash_attention_packed.launches
         got = t_flash.flash_attention_packed(q, k, v, heads, causal=causal)

@@ -109,7 +109,7 @@ def test_normalize_images_matches_jax():
 
 def test_bf16_close_to_fp32():
     cfg = NARROW
-    model = tclip.init_clip(cfg, 0)
+    model = tclip.init_clip(cfg, 0, device="cpu")
     images = torch.from_numpy(_images(cfg, n=2))
     f32 = tclip.encode_image(model, images).numpy()
     bf16 = tclip.encode_image(model, images, compute_dtype=torch.bfloat16).numpy()
@@ -118,7 +118,7 @@ def test_bf16_close_to_fp32():
 
 def test_init_clip_scales_and_determinism():
     cfg = NARROW
-    a, b = tclip.init_clip(cfg, 4), tclip.init_clip(cfg, 4)
+    a, b = tclip.init_clip(cfg, 4, device="cpu"), tclip.init_clip(cfg, 4, device="cpu")
     for (name, pa), (_, pb) in zip(a.state_dict().items(), b.state_dict().items()):
         assert torch.equal(pa, pb), name
     blk = a.visual.blocks[0]
@@ -126,12 +126,12 @@ def test_init_clip_scales_and_determinism():
     assert abs(blk.mlp.w_out.std().item() - (2 * cfg.vision_width) ** -0.5) < 0.01
     assert abs(a.text.token_emb.std().item() - 0.02) < 0.002
     assert torch.equal(blk.ln_1.scale, torch.ones(cfg.vision_width))
-    assert not torch.equal(tclip.init_clip(cfg, 5).visual.proj, a.visual.proj)
+    assert not torch.equal(tclip.init_clip(cfg, 5, device="cpu").visual.proj, a.visual.proj)
 
 
 def test_zoo_random_model_is_init_seed0():
     bundle = tzoo.load_model("test-tiny", device="cpu")
-    ref = tclip.init_clip(TEST_TINY, 0)
+    ref = tclip.init_clip(TEST_TINY, 0, device="cpu")
     assert torch.equal(bundle.model.visual.proj, ref.visual.proj)
     toks = bundle.tokenize(["a caption"])
     assert toks.shape == (1, TEST_TINY.context_length) and toks.dtype == np.int32

@@ -135,6 +135,29 @@ def test_index_classes_loaders_and_clip_index_default_to_cuda(monkeypatch, tmp_p
     assert not (tmp_path / "out").exists()
 
 
+def test_model_init_and_safety_loaders_default_to_cuda(monkeypatch, tmp_path):
+    import numpy as np
+
+    from clip_retrieval_tpu_torch.models import safety
+    from clip_retrieval_tpu_torch.models.clip import init_clip
+    from clip_retrieval_tpu_torch.models.configs import TEST_TINY
+
+    monkeypatch.setenv("HOME", str(tmp_path))
+    path = str(tmp_path / "nsfw_mlp.npz")
+    safety.save_mlp_npz(path, [(np.ones((4, 1), np.float32), np.zeros((1,), np.float32))])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (
+        lambda: init_clip(TEST_TINY, 0),
+        lambda: safety.MLP([(np.ones((4, 1), np.float32), np.zeros((1,), np.float32))]),
+        lambda: safety.MLP.random(4),
+        lambda: safety.load_safety_model("ViT-L/14"),
+        lambda: safety.load_mlp_npz(path),
+    ):
+        with pytest.raises(RuntimeError, match="is_available"):
+            call()
+    assert safety.load_mlp_npz(path, device="cpu").device.type == "cpu"
+
+
 def test_cli_index_help(capsys):
     with pytest.raises(SystemExit) as exc:
         cli.main(["index", "--help"])

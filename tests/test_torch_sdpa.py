@@ -29,10 +29,13 @@ def _inputs(b, h, sq, sk, dh, seed=0):
 
 
 SHAPES = [(2, 4, 50, 50, 64), (1, 3, 77, 77, 64), (2, 2, 40, 57, 80), (1, 2, 57, 33, 64)]
+# the ragged edges of the kernel's 16-row / 16-key tiling, Sq = Sk and Sq != Sk
+EDGES = [(1, 2, s, s, 64) for s in (1, 16, 17, 65, 129)] + [(1, 2, 1, 257, 64), (1, 2, 257, 1, 64),
+                                                             (1, 2, 77, 257, 64)]
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + EDGES)
 @pytest.mark.parametrize("impl", ["auto", "flash"])
 def test_sdpa_matches_jax_flash_and_reference(shape, causal, impl):
     q, k, v = _inputs(*shape)
@@ -86,11 +89,13 @@ def test_wrapper_rejects_other_devices():
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_cuda_kernel_matches_plain_version(dtype):
     """K2 on the card against its plain version on the same inputs: bf16 max
-    abs ≤ 2e-2 against the f32 plain result, f32 atol 1e-4; Sq ≠ Sk too."""
+    abs ≤ 2e-2 against the f32 plain result, f32 atol 1e-4; Sq ≠ Sk and the
+    tiling's ragged edges too."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     dt = getattr(torch, dtype)
-    for b, h, sq, sk, dh in [(4, 12, 50, 50, 64), (4, 16, 257, 257, 88), (2, 12, 77, 77, 64), (2, 4, 57, 200, 64)]:
+    for b, h, sq, sk, dh in [(4, 12, 50, 50, 64), (4, 16, 257, 257, 88), (2, 12, 77, 77, 64), (2, 4, 57, 200, 64),
+                             *EDGES]:
         for causal in (False, True):
             q, k, v = (torch.from_numpy(a).cuda().to(dt) for a in _inputs(b, h, sq, sk, dh))
             before = t_flash.flash_attention.launches

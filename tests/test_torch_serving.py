@@ -296,19 +296,19 @@ def test_safety_heads_load_from_local_files(tmp_path, monkeypatch):
     the aesthetic rating files, all from HOME; nothing else is fetched."""
     torch = pytest.importorskip("torch")
     monkeypatch.setenv("HOME", str(tmp_path))
-    assert t_safety.load_safety_model("ViT-L/14") is None
-    mlp = t_safety.MLP.random(D, seed=5)
+    assert t_safety.load_safety_model("ViT-L/14", device="cpu") is None
+    mlp = t_safety.MLP.random(D, seed=5, device="cpu")
     t_safety.save_mlp_npz(f"{t_safety.cache_folder('ViT-L/14')}/nsfw_mlp.npz",
                           [(w.numpy(), b.numpy()) for w, b in mlp.weights])
     emb = _unit(np.random.default_rng(6).normal(size=(4, D)))
-    np.testing.assert_array_equal(t_safety.load_safety_model("ViT-L/14").predict(emb), mlp.predict(emb))
+    np.testing.assert_array_equal(t_safety.load_safety_model("ViT-L/14", device="cpu").predict(emb), mlp.predict(emb))
 
     # the H14 head's shape: ReLU after every layer but the last two
     layers = torch.nn.Sequential(torch.nn.Linear(D, 16), torch.nn.ReLU(), torch.nn.Linear(16, 8), torch.nn.Linear(8, 1))
     h14 = tmp_path / ".cache" / "clip_retrieval" / "h14_nsfw_model" / "model.pt"
     h14.parent.mkdir(parents=True)
     torch.save({f"layers.{k}": v for k, v in layers.state_dict().items()}, h14)
-    got = t_safety.load_safety_model("open_clip:ViT-H-14").predict(emb)
+    got = t_safety.load_safety_model("open_clip:ViT-H-14", device="cpu").predict(emb)
     with torch.no_grad():
         np.testing.assert_allclose(got, layers(torch.from_numpy(emb)).numpy(), rtol=1e-5, atol=1e-6)
 
@@ -328,8 +328,8 @@ def test_safety_mlp_npz_written_by_jax_loads_in_the_port(tmp_path):
     path = str(tmp_path / "nsfw_mlp.npz")
     j_safety.save_mlp_npz(path, [(np.asarray(w), np.asarray(b)) for w, b in jm.weights],
                           final_activation="sigmoid", relu_last_n_skipped=1)
-    tm = t_safety.load_mlp_npz(path)
+    tm = t_safety.load_mlp_npz(path, device="cpu")
     jm2 = j_safety.load_mlp_npz(path)
     emb = _unit(np.random.default_rng(4).normal(size=(6, D)))
     np.testing.assert_allclose(tm.predict(emb), jm2.predict(emb), atol=1e-6, rtol=1e-5)
-    np.testing.assert_allclose(t_safety.MLP.random(D, seed=3).predict(emb), jm.predict(emb), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(t_safety.MLP.random(D, seed=3, device="cpu").predict(emb), jm.predict(emb), atol=1e-5, rtol=1e-5)
