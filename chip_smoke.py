@@ -30,7 +30,10 @@ ViT-L/14 (full width, random weights from `init_clip`):
   index (64 serial stored-row queries, a text query, 32 concurrent clients;
   each stored row whose own list is among the probed ones comes back first),
   its served recall@40 held to an exact fp16 brute force, K4's device route
-  held to the host C++ scan, and K4 and search batches timed.
+  held to the host C++ scan, and search batches timed; K4 is timed (device
+  times from CUDA graph replay) beside its plain version and
+  `F.embedding_bag` at the B=32 worklists of nprobe served/64/256 and at the
+  B=1 worklists of nprobe 1/8/32, where nearly all of its launches fall.
 
 Phases, each of which stops the script with a non-zero exit when it fails:
 device, build, K1 vs plain, K3 vs plain, K2 vs plain, K4 vs plain, main
@@ -87,7 +90,7 @@ PQ_ROWS, PQ_SHARDS, PQ_CENTRES = 1_000_000, 4, 4096
 PQ_KEY = "OPQ64,IVF1024,PQ64,RFlat"
 PQ_INDEX = "pq1m"
 PQ_MIN_RECALL, PQ_MIN_OVERLAP, PQ_SCORE_TOL = 0.90, 0.99, 1e-4
-K4_MS, K4_BS = (8, 64, 96, 192, 256), (1, 3, 32, 128)
+K4_MS, K4_BS = (8, 16, 64, 96, 192, 256), (1, 3, 32, 128)
 # the card's published peaks (H100 SXM data sheet): HBM bytes/s, dense bf16 FLOP/s, SMs
 HBM_BPS, BF16_FLOPS, SMS = 3.35e12, 989e12, 132
 
@@ -226,11 +229,47 @@ def check_k4(adc, args) -> float:
     return err
 
 
+def k4_edges(gen, nblocks: int) -> list:
+    """The edges of K4's work split, as (label, B, blocks, nvalid, owner):
+    NC = 1; NC below the SM count with owner runs that start inside a span;
+    one owner's run split across many blocks; spans that begin mid-owner
+    (7 owners over 1001 chunks); nvalid 0 everywhere; the served layout (each
+    owner's budget of valid chunks followed by an empty tail)."""
+    import torch
+
+    c = 128
+    i32 = dict(dtype=torch.int32, device="cuda")
+
+    def rand_blocks(nc):
+        return torch.randint(0, nblocks, (nc,), generator=gen, **i32)
+
+    def rand_valid(nc):
+        return torch.randint(0, c + 1, (nc,), generator=gen, **i32)
+
+    def by_owner(nc, b):
+        return (torch.arange(nc, device="cuda") * b // nc).int()
+
+    served_valid = torch.zeros(4, 512, **i32)
+    for q, k in enumerate((300, 1, 511, 0)):  # valid chunks of each owner's 512, then the empty tail
+        served_valid[q, :k] = torch.randint(1, c + 1, (k,), generator=gen, **i32)
+    return [
+        ("NC=1", 1, rand_blocks(1), torch.tensor([77], **i32), torch.zeros(1, **i32)),
+        ("NC=100 < SMs", 3, rand_blocks(100), rand_valid(100), by_owner(100, 3)),
+        ("one owner over 3000 chunks", 1, rand_blocks(3000), rand_valid(3000), torch.zeros(3000, **i32)),
+        ("7 owners over 1001 chunks", 7, rand_blocks(1001), rand_valid(1001), by_owner(1001, 7)),
+        ("nvalid 0 everywhere", 3, rand_blocks(777), torch.zeros(777, **i32), by_owner(777, 3)),
+        ("served layout, empty tails", 4, rand_blocks(2048), served_valid.reshape(-1), by_owner(2048, 4)),
+    ]
+
+
 def phase_k4(adc) -> float:
-    """K4 against its plain version at M in {8, 64, 96, 192, 256} x B in
-    {1, 3, 32, 128}, C = 128: a short worklist with nvalid 0, partial and
-    full chunks, repeated blocks and owners out of order, and a long one
-    ordered by owner (the served layout, 16-chunk runs per block)."""
+    """K4 against its plain version at M in K4_MS x B in K4_BS, C = 128: a
+    short worklist with nvalid 0, partial and full chunks, repeated blocks
+    and owners out of order, and a long one ordered by owner (the served
+    layout); at every M the edges of the work split (`k4_edges`) and, where
+    M allows, codes at 4- and 1-byte alignment (the kernel's narrower load
+    routes); out-of-range blocks and owners give NaN rows and leave the
+    other chunks as the plain version has them."""
     import torch
 
     gen = torch.Generator(device="cuda")
@@ -252,9 +291,38 @@ def phase_k4(adc) -> float:
                 coarse = torch.randn(blocks.shape[0], generator=gen, device="cuda")
                 worst = max(worst, check_k4(adc, (codes, lut, blocks, nvalid, owner, coarse)))
                 n += 1
+        edges = k4_edges(gen, nblocks)
+        for _, b, blocks, nvalid, owner in edges:
+            lut = torch.randn(b, m, 256, generator=gen, device="cuda")
+            coarse = torch.randn(blocks.shape[0], generator=gen, device="cuda")
+            worst = max(worst, check_k4(adc, (codes, lut, blocks, nvalid, owner, coarse)))
+            n += 1
+        # the same codes at 4- and 1-byte alignment: a view into a larger buffer
+        _, b, blocks, nvalid, owner = edges[3]
+        lut = torch.randn(b, m, 256, generator=gen, device="cuda")
+        coarse = torch.randn(blocks.shape[0], generator=gen, device="cuda")
+        for off in (4, 1):
+            buf = torch.empty(codes.numel() + 16, dtype=torch.uint8, device="cuda")
+            shifted = buf[off : off + codes.numel()].view(codes.shape)
+            shifted.copy_(codes)
+            check(shifted.data_ptr() % 16 == off, f"codes view at offset {shifted.data_ptr() % 16}")
+            worst = max(worst, check_k4(adc, (shifted, lut, blocks, nvalid, owner, coarse)))
+            n += 1
+        # out-of-range blocks and owners: NaN rows, the other chunks as the plain version gives them
+        blocks_bad, owner_bad = blocks.clone(), owner.clone()
+        blocks_bad[5], owner_bad[500], blocks_bad[900] = nblocks, b, -1
+        got = adc.adc_scan(codes, lut, blocks_bad, nvalid, owner_bad, coarse)
+        ref = adc.adc_scan_reference(codes, lut, blocks, nvalid, owner, coarse)
+        torch.cuda.synchronize()
+        bad = torch.zeros(blocks.shape[0], dtype=torch.bool, device="cuda")
+        bad[[5, 500, 900]] = True
+        check(bool(torch.isnan(got[bad]).all()), f"K4 out-of-range chunks not NaN at M={m}")
+        check(torch.equal(got[~bad], ref[~bad]), f"K4 chunks beside out-of-range ones differ at M={m}")
+        n += 1
     print(f"  K4 vs plain: {n} worklists (M {'/'.join(map(str, K4_MS))} x B {'/'.join(map(str, K4_BS))} x "
-          f"(10 chunks: nvalid 0/partial/full, repeated blocks; 5000 chunks ordered by owner)) bit-identical; "
-          f"max abs err {worst}")
+          f"(10 chunks: nvalid 0/partial/full, repeated blocks; 5000 chunks ordered by owner); at every M: "
+          f"{'; '.join(e[0] for e in edges)}; codes at 4- and 1-byte alignment; out-of-range blocks/owners NaN) "
+          f"bit-identical; max abs err {worst}")
     return worst
 
 
@@ -1018,18 +1086,13 @@ def phase_query_times(index, int8scan, originals, sample_ids, port: int, gpu: st
     return k3_ms, plain_ms, err, 1e3 * gbytes * 1e9 / HBM_BPS
 
 
-def clock_max_hz() -> float:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-                         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()
-    return float(out[0]) * 1e6
-
-
 def phase_pq_checks(pq_folder: str, pq_rows, pq_ids, pq_served, adc, gpu: str) -> dict:
     """The served IVF-PQ answers against an exact fp16 brute force on the
     card (recall@40), K4's device route against the host C++ scan (top-40
     overlap and scores), search-batch p50 at B=1 and B=32, and K4 against its
-    plain version at B=32 worklists with its bound.  Returns K4's numbers at
-    the served worklist for the kernels line."""
+    plain version and `F.embedding_bag` at B=32 worklists and B=1 worklists
+    with its bound.  Returns K4's numbers at the served worklist for the
+    kernels line, with those at the B=1 worklists under `at_b1`."""
     from clip_retrieval_tpu_torch.index.flat import FlatIndex, to_device
     from clip_retrieval_tpu_torch.index.ivfpq import IVFPQIndex, _device_room
 
@@ -1067,53 +1130,60 @@ def phase_pq_checks(pq_folder: str, pq_rows, pq_ids, pq_served, adc, gpu: str) -
         print(f"  [{gpu}] {PQ_INDEX} search batch B={b}: device busy {busy:.3f} ms per batch ({busy / p50:.3f} of the p50)")
 
     # K4 at the B=32 worklist the device route gives this batch: at the served nprobe (the kernels line), and at
-    # nprobe 64 and 256, worklists of the size a 1M-row index gives when its lists are probed widely
+    # nprobe 64 and 256, worklists of the size a 1M-row index gives when its lists are probed widely; then at the
+    # B=1 worklists of single-query searches (calibration and serial queries), nprobe 1, 8 and 32
     qr = to_device(q[:32], ix.device)
     if ix._ensure_device()["rotation"] is not None:
         qr = qr @ ix._ensure_device()["rotation"]
     timed = {np_: time_k4(ix, qr, np_, adc, gpu, "served" if np_ == nprobe else "wide")
              for np_ in sorted({nprobe, min(64, ix.nlist), min(256, ix.nlist)})}
-    return {**timed[nprobe], "max_abs_err": max(t["max_abs_err"] for t in timed.values())}
+    at_b1 = [{"nprobe": np_, **time_k4(ix, qr[:1], np_, adc, gpu, "single-query")}
+             for np_ in (1, min(8, ix.nlist), min(32, ix.nlist))]
+    worst = max(t["max_abs_err"] for t in [*timed.values(), *at_b1])
+    return {**timed[nprobe], "max_abs_err": worst, "at_b1": at_b1}
 
 
 def time_k4(ix, qr, nprobe: int, adc, gpu: str, label: str) -> dict:
     """K4 against its plain version (bit-identical, then timed in one call)
     at the chunk worklist the device route builds for the queries qr at
-    nprobe, with its bound.  Returns the numbers for the kernels line."""
-    from clip_retrieval_tpu_torch.index.ivf_int8 import _next_pow2
-    from clip_retrieval_tpu_torch.index.ivfpq import _budget_buckets, _worklist, probe
+    nprobe, with its bound, beside `F.embedding_bag` over the same LUT
+    (indices built before the timed region; not on the path).  Device times
+    per call from CUDA graph replay (`ab_adc.graph_ms`), so the host's launch
+    cost does not enter them.  Returns the numbers for the kernels line."""
+    import torch
 
-    dv = ix._ensure_device()
-    probe_vals, probe_idx = probe(qr, dv["coarse"], nprobe)
-    worst_chunks, expected = ix._skew_factor(nprobe)
-    if worst_chunks > 4 * expected:
-        route = "skew buckets, timed at the largest"
-        nchunk_q = max(_budget_buckets(dv["csizes"][probe_idx].sum(dim=1).cpu().numpy(), 8))
-    else:
-        route, nchunk_q = "static budget", _next_pow2(max(worst_chunks, 8))
-    args, _, _ = _worklist(qr, probe_vals, probe_idx, dv, nchunk_q)
+    from clip_retrieval_tpu_torch.tools.ab_adc import bag_check, bag_inputs, clock_max_hz, graph_ms, k4_bound
+    from clip_retrieval_tpu_torch.tools.ab_adc import served_worklist
+
+    args, route, nchunk_q = served_worklist(ix, qr, nprobe)
     err = check_k4(adc, args)
+    idx, weight = bag_inputs(args)
+    bag_err = bag_check(args, idx, weight)
+    check(bag_err <= PQ_SCORE_TOL, f"embedding_bag's sums differ from the plain version's by {bag_err:.3e}")
     kern = lambda: adc.adc_scan(*args)
     plain = lambda: adc.adc_scan_reference(*args)
-    for fn in (kern, plain):
-        fn()
-    times: dict[str, list[float]] = {"K4": [], "plain": []}
-    for name, fn in (("plain", plain), ("K4", kern), ("K4", kern), ("plain", plain)):
-        times[name].append(cuda_ms(fn, 20))
-    k4_ms, plain_ms = float(np.mean(times["K4"])), float(np.mean(times["plain"]))
-    nc, m = args[2].shape[0], ix.m
-    valid_rows = int(args[3].sum().item())
-    nbytes = valid_rows * m + args[1].numel() * 4 + nc * 16 + nc * adc.CHUNK * 4
-    lookups = valid_rows * m
+    bag = lambda: torch.nn.functional.embedding_bag(idx, weight, mode="sum")
+    b1 = qr.shape[0] == 1
+    iters = {"K4": 100 if b1 else 20, "plain": 10 if b1 else 2, "embedding_bag": 20 if b1 else 2}
+    times: dict[str, list[float]] = {"K4": [], "plain": [], "embedding_bag": []}
+    for name, fn in (("plain", plain), ("embedding_bag", bag), ("K4", kern), ("K4", kern), ("embedding_bag", bag),
+                     ("plain", plain)):
+        times[name].append(graph_ms(fn, iters[name]))
+    k4_ms, plain_ms, bag_ms = (float(np.mean(times[n])) for n in ("K4", "plain", "embedding_bag"))
+    del idx, weight
+    torch.cuda.empty_cache()
     clock = clock_max_hz()
-    t_bytes, t_ops = nbytes / HBM_BPS, lookups / (SMS * 32 * clock)
-    bound_ms, bound_by = 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    bd = k4_bound(args, clock)
     print(f"  [{gpu}] K4 at the {label} B={qr.shape[0]} worklist, nprobe {nprobe} ({route}: {nchunk_q} chunks per "
-          f"query, NC={nc}, {valid_rows} valid rows, M={m}): {k4_ms:.4f} ms/call (runs {times['K4']}); plain version "
-          f"{plain_ms:.4f} ms/call (runs {times['plain']}); bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB "
-          f"at 3.35 TB/s = {1e3 * t_bytes:.4f} ms, {lookups / 1e6:.1f} M LUT lookups at {SMS} SMs x 32/clk x "
-          f"{clock / 1e9:.3f} GHz = {1e3 * t_ops:.4f} ms); {k4_ms / bound_ms:.1f}x the bound")
-    return {"ms": k4_ms, "plain_ms": plain_ms, "max_abs_err": err, "bound_ms": bound_ms, "bound_by": bound_by}
+          f"query, NC={bd['nc']}, {bd['valid_rows']} valid rows, M={ix.m}): {k4_ms:.4f} ms/call (runs {times['K4']}); "
+          f"plain version {plain_ms:.4f} ms/call (runs {times['plain']}); F.embedding_bag {bag_ms:.4f} ms/call (runs "
+          f"{times['embedding_bag']}, sums within {bag_err:.1e} of the plain version's; not on the path); bound "
+          f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}: {bd['bytes'] / 1e6:.1f} MB at 3.35 TB/s = "
+          f"{bd['bytes_ms']:.4f} ms, "
+          f"{bd['lookups'] / 1e6:.1f} M LUT lookups at {SMS} SMs x 32/clk x {clock / 1e9:.3f} GHz = "
+          f"{bd['lookups_ms']:.4f} ms); {k4_ms / bd['bound_ms']:.1f}x the bound; device times from CUDA graph replay")
+    return {"nc": bd["nc"], "ms": k4_ms, "plain_ms": plain_ms, "library_ms": bag_ms, "max_abs_err": err,
+            "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"]}
 
 
 def run() -> int:
@@ -1216,7 +1286,8 @@ def run() -> int:
             ("k3", "int8_gather_scan", "int8_scan.cu", "clip_retrieval_tpu/ops/int8scan.py:130",
              max(k3_err, k3_err_served), k3_ms, k3_plain_ms, k3_bound, "bytes", None),
             ("k4", "adc_scan", "adc_scan.cu", "clip_retrieval_tpu/ops/adc_scan.py:81",
-             max(k4_err, k4["max_abs_err"]), k4["ms"], k4["plain_ms"], k4["bound_ms"], k4["bound_by"], None),
+             max(k4_err, k4["max_abs_err"]), k4["ms"], k4["plain_ms"], k4["bound_ms"], k4["bound_by"],
+             k4["library_ms"]),
         ]
         line = []
         for key, name, src, replaces, err, ms, p_ms, bound, by, lib in rows:
@@ -1229,6 +1300,7 @@ def run() -> int:
         text_bound, _ = attention_bound_ms(BATCH, 12, 77, 77, 64, 2)
         line[0]["at_text_shape"] = {"shape": [BATCH, 77, 12, 64], "causal": True, "ms": k1_text[0],
                                     "plain_ms": k1_text[1], "library_ms": k1_text[2], "bound_ms": text_bound}
+        line[3]["at_b1"] = k4["at_b1"]  # single-query worklists: nearly all of K4's launches
     except Exception as e:  # every phase failure ends the run with its phase named
         import traceback
 

@@ -284,6 +284,16 @@ class IVFPQIndex:
         expected = max(8, total_chunks * min(nprobe, self.nlist) // max(self.nlist, 1))
         return worst_chunks, expected
 
+    def _chunk_buckets(self, dv: dict, probe_idx: torch.Tensor, nprobe: int) -> tuple[dict[int, np.ndarray], bool]:
+        """(chunk budget → the queries scanned with it, skewed): one static
+        budget for every query when lists are uniform, per-query power-of-two
+        buckets (after one read-back of the probed totals) under skew."""
+        worst_chunks, expected = self._skew_factor(nprobe)
+        if worst_chunks > 4 * expected or self._static_budget(nprobe) > _STATIC_BUDGET_MAX:
+            totals = dv["csizes"][probe_idx].sum(dim=1).cpu().numpy()
+            return _budget_buckets(totals, 8), True
+        return {_next_pow2(max(worst_chunks, 8)): np.arange(probe_idx.shape[0])}, False
+
     def _search_device(self, queries: np.ndarray, k: int, nprobe: int) -> Tuple[np.ndarray, np.ndarray]:
         """Chunk-worklist ADC scan on the device (see module docstring)."""
         dv = self._ensure_device()
@@ -292,12 +302,7 @@ class IVFPQIndex:
             qr = qr @ dv["rotation"]
         b = qr.shape[0]
         probe_vals, probe_idx = probe(qr, dv["coarse"], nprobe)
-        worst_chunks, expected = self._skew_factor(nprobe)
-        if worst_chunks > 4 * expected or self._static_budget(nprobe) > _STATIC_BUDGET_MAX:
-            totals = dv["csizes"][probe_idx].sum(dim=1).cpu().numpy()
-            buckets = _budget_buckets(totals, 8)
-        else:
-            buckets = {_next_pow2(max(worst_chunks, 8)): np.arange(b)}
+        buckets, _ = self._chunk_buckets(dv, probe_idx, nprobe)
         pending = []
         for nchunk_q, sel in buckets.items():
             step = max(1, _SLOTS_PER_DISPATCH // (nchunk_q * _ALIGN))

@@ -20,6 +20,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
 from .clip import CLIP
 from .configs import CLIPConfig
 
@@ -60,9 +61,11 @@ def _copy_blocks(blocks, tree: Mapping[str, Any], prefix: str):
             _copy(getattr(blk.mlp, name), tree["mlp"][name][i], f"{prefix}.mlp.{name}[{i}]")
 
 
-def from_jax_params(tree: Mapping[str, Any], cfg: CLIPConfig, device: str | torch.device = "cpu") -> CLIP:
+def from_jax_params(tree: Mapping[str, Any], cfg: CLIPConfig, device: str | torch.device = "cuda") -> CLIP:
     """The JAX package's param tree (arrays as numpy, blocks stacked on a
-    leading layer axis) → a `CLIP` module on `device`, weights in f32."""
+    leading layer axis) → a `CLIP` module on `device`, weights in f32.  The
+    default device is CUDA; without a GPU it raises unless given "cpu"."""
+    device = resolve_device(device)
     model = CLIP(cfg, torch.device("cpu"))
     vt, tt = tree["visual"], tree["text"]
     v, t = model.visual, model.text
@@ -139,7 +142,8 @@ def hf_tree(sd: Mapping[str, Any], cfg: CLIPConfig) -> dict:
     return {"visual": visual, "text": text, "logit_scale": g("logit_scale").reshape(())}
 
 
-def convert_hf_state_dict(sd: Mapping[str, Any], cfg: CLIPConfig, device: str | torch.device = "cpu") -> CLIP:
+def convert_hf_state_dict(sd: Mapping[str, Any], cfg: CLIPConfig, device: str | torch.device = "cuda") -> CLIP:
+    device = resolve_device(device)
     return from_jax_params(hf_tree(sd, cfg), cfg, device)
 
 
@@ -205,8 +209,9 @@ def openai_tree(sd: Mapping[str, Any], cfg: CLIPConfig) -> dict:
 
 
 def convert_openai_state_dict(
-    sd: Mapping[str, Any], cfg: CLIPConfig, device: str | torch.device = "cpu"
+    sd: Mapping[str, Any], cfg: CLIPConfig, device: str | torch.device = "cuda"
 ) -> CLIP:
+    device = resolve_device(device)
     return from_jax_params(openai_tree(sd, cfg), cfg, device)
 
 
@@ -223,7 +228,8 @@ def detect_format(sd: Mapping[str, Any]) -> str:
     raise ValueError("unrecognized CLIP state dict format")
 
 
-def convert_state_dict(sd: Mapping[str, Any], cfg: CLIPConfig, device: str | torch.device = "cpu") -> CLIP:
+def convert_state_dict(sd: Mapping[str, Any], cfg: CLIPConfig, device: str | torch.device = "cuda") -> CLIP:
+    device = resolve_device(device)
     if detect_format(sd) == "hf":
         return convert_hf_state_dict(sd, cfg, device)
     return convert_openai_state_dict(sd, cfg, device)
@@ -253,14 +259,16 @@ def config_from_hf(hf_config) -> CLIPConfig:
 
 
 def load_checkpoint(
-    path: str, cfg: CLIPConfig | None = None, device: str | torch.device = "cpu"
+    path: str, cfg: CLIPConfig | None = None, device: str | torch.device = "cuda"
 ) -> tuple[CLIP, CLIPConfig]:
     """Load a .pt/.bin/.npz checkpoint from disk and convert.
 
     Returns (model, cfg).  cfg is read from a config.json beside an HF
-    checkpoint when not given."""
+    checkpoint when not given.  The default device is CUDA; without a GPU it
+    raises, before reading the file, unless given "cpu"."""
     import os
 
+    device = resolve_device(device)
     if path.endswith(".npz"):
         with np.load(path) as z:
             sd = {k: z[k] for k in z.files}

@@ -90,8 +90,18 @@ def _check(codes, lut, blocks, nvalid, owner, coarse) -> None:
             raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if lut.data_ptr() % 16:
+        raise ValueError("lut must start at a 16-byte aligned address (the kernel copies it 16 bytes at a time)")
     if nc >= 2**31 // CHUNK:
         raise ValueError(f"{nc} chunks exceed the kernel's int32 chunk index")
+
+
+def code_width(codes: torch.Tensor) -> int:
+    """Bytes the kernel reads at once from a code row: 16 when M % 16 == 0
+    and the codes are 16-byte aligned, 4 when M % 4 == 0 and 4-byte aligned,
+    else 1 (`crt_adc_scan`'s `vec`)."""
+    m, ptr = codes.shape[1], codes.data_ptr()
+    return 16 if m % 16 == 0 and ptr % 16 == 0 else (4 if m % 4 == 0 and ptr % 4 == 0 else 1)
 
 
 def adc_scan(
@@ -104,10 +114,10 @@ def adc_scan(
 ) -> torch.Tensor:
     """ADC scores (NC, 128) f32, −inf past each chunk's nvalid.
 
-    CUDA tensors: the dtypes above, contiguous; anything else raises.  A
-    chunk whose block or owner is out of range gives NaN on CUDA (the kernel
-    reads only inside the arrays) and raises on the CPU.  CPU tensors: the
-    plain reference."""
+    CUDA tensors: the dtypes above, contiguous, lut 16-byte aligned;
+    anything else raises.  A chunk whose block or owner is out of range gives
+    NaN on CUDA (the kernel reads only inside the arrays) and raises on the
+    CPU.  CPU tensors: the plain reference."""
     tensors = (codes, lut, blocks, nvalid, owner, coarse)
     devices = {t.device for t in tensors}
     if len(devices) != 1:
@@ -121,14 +131,12 @@ def adc_scan(
     out = torch.empty((nc, CHUNK), dtype=torch.float32, device=codes.device)
     if nc == 0:
         return out
-    ptr = codes.data_ptr()
-    vec = 16 if m % 16 == 0 and ptr % 16 == 0 else (4 if m % 4 == 0 and ptr % 4 == 0 else 1)
     lib = _lib()
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream(codes.device).cuda_stream
         rc = lib.crt_adc_scan(
-            ptr, codes.shape[0] // CHUNK, lut.data_ptr(), lut.shape[0], m, blocks.data_ptr(), nvalid.data_ptr(),
-            owner.data_ptr(), coarse.data_ptr(), out.data_ptr(), nc, vec, stream,
+            codes.data_ptr(), codes.shape[0] // CHUNK, lut.data_ptr(), lut.shape[0], m, blocks.data_ptr(),
+            nvalid.data_ptr(), owner.data_ptr(), coarse.data_ptr(), out.data_ptr(), nc, code_width(codes), stream,
         )
     if rc != 0:
         msg = lib.crt_cuda_error_string(rc).decode()

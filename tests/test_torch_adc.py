@@ -17,6 +17,7 @@ import jax.numpy as jnp
 
 from clip_retrieval_tpu.ops.adc_scan import adc_scan as jax_adc_scan
 from clip_retrieval_tpu_torch.ops import adc_scan as k4
+from clip_retrieval_tpu_torch.tools import ab_adc
 
 C = k4.CHUNK
 
@@ -32,6 +33,46 @@ def _case(m, b, nblocks=5, seed=0):
     owner = (np.array([0, 0, 1, 1, 2, 2, 0]) % b).astype(np.int32)
     coarse = rng.normal(size=(7,)).astype(np.float32)
     return codes, lut, blocks, nvalid, owner, coarse
+
+
+def _served_case(m, b, per_owner=48, nblocks=40, seed=0):
+    """The served layout: each owner's budget of `per_owner` chunks, in
+    owner order, its list chunks first (full, the last one partial) and an
+    empty tail (nvalid 0, block 0) after them, as `ivfpq._worklist` builds
+    it."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 256, (nblocks * C, m)).astype(np.uint8)
+    lut = rng.normal(size=(b, m, 256)).astype(np.float32)
+    blocks, nvalid = [], []
+    for q in range(b):
+        rows = int(rng.integers(0, per_owner * C // 2 + 1)) if q else per_owner * C  # owner 0: no tail
+        n = -(-rows // C)
+        blocks += list(rng.integers(0, nblocks, n)) + [0] * (per_owner - n)
+        nvalid += [min(C, rows - i * C) for i in range(n)] + [0] * (per_owner - n)
+    owner = np.repeat(np.arange(b), per_owner).astype(np.int32)
+    coarse = rng.normal(size=(b * per_owner,)).astype(np.float32)
+    return codes, lut, np.array(blocks, np.int32), np.array(nvalid, np.int32), owner, coarse
+
+
+def _edge_cases(m, seed=0):
+    """The edges of the kernel's work split, as (label, case): NC = 1; NC
+    below the SM count; one owner's run over many blocks' spans; spans that
+    begin mid-owner (7 owners over 1001 chunks); nvalid 0 everywhere; the
+    served layout with empty tails."""
+    rng = np.random.default_rng(seed)
+    nblocks = 12
+    codes = rng.integers(0, 256, (nblocks * C, m)).astype(np.uint8)
+
+    def case(nc, b, nvalid=None):
+        lut = rng.normal(size=(b, m, 256)).astype(np.float32)
+        blocks = rng.integers(0, nblocks, nc).astype(np.int32)
+        nv = rng.integers(0, C + 1, nc).astype(np.int32) if nvalid is None else nvalid
+        owner = (np.arange(nc) * b // nc).astype(np.int32)
+        return codes, lut, blocks, nv, owner, rng.normal(size=(nc,)).astype(np.float32)
+
+    return [("NC=1", case(1, 1)), ("NC=100", case(100, 3)), ("one owner, 3000 chunks", case(3000, 1)),
+            ("7 owners, 1001 chunks", case(1001, 7)), ("nvalid 0", case(777, 3, np.zeros(777, np.int32))),
+            ("served layout", _served_case(m, 4, per_owner=512, seed=seed))]
 
 
 def _torch(arrays):
@@ -57,6 +98,42 @@ def test_plain_version_matches_numpy_gather_sum(m, b):
     np.testing.assert_array_equal(np.isneginf(got), np.isneginf(want))
     fin = np.isfinite(want)
     np.testing.assert_allclose(got[fin], want[fin], atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("m,b", [(16, 3), (64, 5)])
+def test_plain_version_matches_numpy_gather_sum_on_the_served_layout(m, b):
+    """A long owner-sorted worklist: many chunks per owner, list chunks then
+    an empty tail, as the device route builds it."""
+    case = _served_case(m, b, seed=m + b)
+    got = k4.adc_scan(*_torch(case)).numpy()
+    want = _numpy_gather_sum(*case)
+    assert got.shape == (b * 48, C)
+    np.testing.assert_array_equal(np.isneginf(got), np.isneginf(want))
+    assert np.isneginf(got[case[3] == 0]).all() and (case[3] == 0).sum() > 0
+    fin = np.isfinite(want)
+    np.testing.assert_allclose(got[fin], want[fin], atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("m,b", [(16, 3), (64, 2)])
+def test_yardstick_and_bound_of_the_ab_tool(m, b):
+    """`ab_adc.bag_inputs` makes `F.embedding_bag` compute the kernel's sums
+    (before the mask and the coarse term), and `k4_bound` counts the valid
+    rows' bytes and lookups."""
+    codes, lut, blocks, nvalid, owner, coarse = args = _torch(_served_case(m, b, seed=7))
+    assert ab_adc.bag_check(args, *ab_adc.bag_inputs(args)) <= 1e-5
+    bound = ab_adc.k4_bound(args, 1.98e9)
+    rows = int(nvalid.sum())
+    assert bound["valid_rows"] == rows and bound["lookups"] == rows * m
+    assert bound["bytes"] == rows * m + b * m * 256 * 4 + len(blocks) * (16 + 128 * 4)
+    assert bound["bound_ms"] == max(bound["bytes_ms"], bound["lookups_ms"])
+
+
+def test_ab_tool_reads_ptxas_reports():
+    log = ("ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119adc_resident_kernelILi16EEEvPKhxPKf' for "
+           "'sm_90a'\nptxas info    : Function properties for x\n    8 bytes stack frame, 8 bytes spill stores, 8 "
+           "bytes spill loads\nptxas info    : Used 80 registers, used 1 barriers, 400 bytes cmem[0]\n")
+    assert ab_adc.ptxas_report(log) == {"adc_resident_kernel<16>": {"spill_stores": 8, "spill_loads": 8,
+                                                                    "registers": 80, "static_smem": 0}}
 
 
 def test_plain_version_adds_in_sub_quantizer_order():
@@ -123,3 +200,23 @@ def test_cuda_kernel_bit_identical_to_plain_version():
             torch.cuda.synchronize()
             assert k4.adc_scan.launches == before + 1
             assert torch.equal(got, k4.adc_scan_reference(*args)), (m, b)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_bit_identical_on_the_work_split_edges():
+    """K4 on the card against its plain version on the edges of its work
+    split (`_edge_cases`) at M ∈ {8, 16, 64, 96, 256}, and with codes at 4-
+    and 1-byte alignment (the narrower load routes): bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    for m in (8, 16, 64, 96, 256):
+        for label, case in _edge_cases(m, seed=m):
+            args = [a.cuda() for a in _torch(case)]
+            assert torch.equal(k4.adc_scan(*args), k4.adc_scan_reference(*args)), (m, label)
+        codes, *rest = [a.cuda() for a in _torch(_edge_cases(m, seed=m)[3][1])]
+        for off in (4, 1):
+            buf = torch.empty(codes.numel() + 16, dtype=torch.uint8, device="cuda")
+            shifted = buf[off : off + codes.numel()].view(codes.shape)
+            shifted.copy_(codes)
+            assert shifted.data_ptr() % 16 == off
+            assert torch.equal(k4.adc_scan(shifted, *rest), k4.adc_scan_reference(codes, *rest)), (m, off)

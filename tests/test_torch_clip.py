@@ -74,7 +74,7 @@ def _numpy_tree(params):
 def pair(request):
     cfg = request.param
     params = jclip.init_clip(cfg, 3)
-    return cfg, params, tloaders.from_jax_params(_numpy_tree(params), cfg)
+    return cfg, params, tloaders.from_jax_params(_numpy_tree(params), cfg, device="cpu")
 
 
 def test_encode_image_matches_jax(pair):
@@ -183,7 +183,7 @@ def hf_model():
 def hf_converted(hf_model):
     cfg = tloaders.config_from_hf(hf_model.config)
     sd = hf_model.state_dict()
-    return cfg, jloaders.convert_hf_state_dict(sd, cfg), tloaders.convert_hf_state_dict(sd, cfg)
+    return cfg, jloaders.convert_hf_state_dict(sd, cfg), tloaders.convert_hf_state_dict(sd, cfg, device="cpu")
 
 
 def test_hf_conversion_image_matches_jax_and_hf(hf_model, hf_converted):
@@ -245,7 +245,7 @@ def test_openai_conversion_matches_hf(hf_model, hf_converted):
                     [sd[src + f"self_attn.{p}_proj.{kind}"] for p in "qkv"]
                 )
     assert tloaders.detect_format(osd) == "openai"
-    model_oa = tloaders.convert_openai_state_dict(osd, cfg)
+    model_oa = tloaders.convert_openai_state_dict(osd, cfg, device="cpu")
     for (name, a), (_, b) in zip(model_hf.state_dict().items(), model_oa.state_dict().items()):
         assert torch.equal(a, b), name
 
@@ -254,7 +254,7 @@ def test_load_checkpoint_pt_matches_conversion(hf_model, hf_converted, tmp_path)
     cfg, _, model = hf_converted
     path = str(tmp_path / "ckpt.pt")
     torch.save(hf_model.state_dict(), path)
-    loaded, cfg2 = tloaders.load_checkpoint(path, cfg)
+    loaded, cfg2 = tloaders.load_checkpoint(path, cfg, device="cpu")
     assert cfg2 == cfg
     for (name, a), (_, b) in zip(model.state_dict().items(), loaded.state_dict().items()):
         assert torch.equal(a, b), name

@@ -158,6 +158,23 @@ def test_model_init_and_safety_loaders_default_to_cuda(monkeypatch, tmp_path):
     assert safety.load_mlp_npz(path, device="cpu").device.type == "cpu"
 
 
+@pytest.mark.parametrize("loader", ["from_jax_params", "convert_hf_state_dict", "convert_openai_state_dict",
+                                    "convert_state_dict", "load_checkpoint"])
+def test_checkpoint_loaders_default_to_cuda(monkeypatch, tmp_path, loader):
+    """Without a GPU each loader raises on its default device before it
+    reads anything; given device="cpu" it gets as far as the (empty)
+    checkpoint."""
+    from clip_retrieval_tpu_torch.models import loaders
+    from clip_retrieval_tpu_torch.models.configs import TEST_TINY
+
+    source = str(tmp_path / "missing.pt") if loader == "load_checkpoint" else {}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        getattr(loaders, loader)(source, TEST_TINY)
+    with pytest.raises((KeyError, ValueError, FileNotFoundError)):
+        getattr(loaders, loader)(source, TEST_TINY, device="cpu")
+
+
 def test_cli_index_help(capsys):
     with pytest.raises(SystemExit) as exc:
         cli.main(["index", "--help"])
