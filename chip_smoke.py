@@ -33,16 +33,28 @@ ViT-L/14 (full width, random weights from `init_clip`):
   held to the host C++ scan, and search batches timed; K4 is timed (device
   times from CUDA graph replay) beside its plain version and
   `F.embedding_bag` at the B=32 worklists of nprobe served/64/256 and at the
-  B=1 worklists of nprobe 1/8/32, where nearly all of its launches fall.
+  B=1 worklists of nprobe 1/8/32, where nearly all of its launches fall;
+- shard -> combine -> reorder -> serve: pq1m split by id range into 4
+  shards sharing its trained prefix and merged by the `index_combiner`
+  entry point (arrays and search ids equal pq1m's); an IVF-int8 index over
+  the same corpus built as 4 shards against one trained coarse quantizer,
+  merged, held to the whole-corpus build, mapped to IVF order
+  (`get_old_to_new_mapping`, `search_to_new_ids`) and served by `back` as a
+  third index; `parquet_to_arrow` over the corpus's 1M metadata rows;
+- the entry points on ported code: `clip_end2end` over the 512 samples
+  (inference, index, an in-process `back` app), `clip_filter` on its index
+  (threshold and image-file queries) and on pq1m, and `ClipClient` against
+  the running `back`, compared with raw HTTP.
 
 Phases, each of which stops the script with a non-zero exit when it fails:
 device, build, K1 vs plain, K3 vs plain, K2 vs plain, K4 vs plain, main
-path, tower parity, times, sdpa path, index build, index, served path,
-recall, query times, IVF-PQ checks.  Kernel launch counts are set to 0 just
-before each path and read just after it.  The line before the last is a JSON
-object describing each kernel; the last line is `{"ok": true, "device":
-{...}}`.  Without a CUDA device, or without the package beside it, the
-script exits non-zero and prints no result.
+path, tower parity, times, sdpa path, index build, combine IVF-int8 build,
+index, served path, recall, query times, IVF-PQ checks, combine IVF-PQ,
+combine IVF-int8, arrow, end2end, filter, client.  Kernel launch counts are
+set to 0 just before each path and read just after it.  The line before the
+last is a JSON object describing each kernel; the last line is `{"ok":
+true, "device": {...}}`.  Without a CUDA device, or without the package
+beside it, the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -91,6 +103,8 @@ PQ_KEY = "OPQ64,IVF1024,PQ64,RFlat"
 PQ_INDEX = "pq1m"
 PQ_MIN_RECALL, PQ_MIN_OVERLAP, PQ_SCORE_TOL = 0.90, 0.99, 1e-4
 K4_MS, K4_BS = (8, 16, 64, 96, 192, 256), (1, 3, 32, 128)
+# slice 4: shard builds merged by `index_combiner`; the IVF-int8 index built over the pq1m corpus, served third
+COMBINE_SHARDS, INT8_NLIST, INT8_INDEX = 4, 1024, "int8combined1m"
 # the card's published peaks (H100 SXM data sheet): HBM bytes/s, dense bf16 FLOP/s, SMs
 HBM_BPS, BF16_FLOPS, SMS = 3.35e12, 989e12, 132
 
@@ -868,7 +882,7 @@ def phase_serve(kernels: dict, sample_ids, originals, pq_rows, pq_ids, pq_probed
     def counts():
         return read_counts(kernels)["k1"], read_counts(kernels)["k3"]
 
-    # (a) serial embedding queries: b=1 batches → the static route
+    # (a) serial embedding queries: b=1 batches (the exact route, as every batch size)
     _, k3_0 = counts()
     served, first_sims = [], []
     for i in range(N_QUERIES):
@@ -880,7 +894,7 @@ def phase_serve(kernels: dict, sample_ids, originals, pq_rows, pq_ids, pq_probed
         served.append([r["id"] for r in res])
         first_sims.append(res[0]["similarity"])
     k1_a, k3_a = counts()
-    check(k3_a > k3_0, "K3 did not launch for the serial embedding queries (static route)")
+    check(k3_a > k3_0, "K3 did not launch for the serial embedding queries")
     print(f"  (a) {N_QUERIES} serial embedding queries: every first result is the queried row, similarity "
           f"{min(first_sims):.5f}..{max(first_sims):.5f}; K3 launches +{k3_a - k3_0}")
     # (b) text queries
@@ -907,7 +921,7 @@ def phase_serve(kernels: dict, sample_ids, originals, pq_rows, pq_ids, pq_probed
     check(status == 200 and [m["metadata"]["caption"] for m in metas] == [f"row {i}" for i in sample_ids[:5]],
           "/metadata answered badly")
     status, names = http_json(port, "GET", "/indices-list")
-    check(status == 200 and names == [INDEX_NAME, PQ_INDEX], f"/indices-list answered {status} {names}")
+    check(status == 200 and names == [INDEX_NAME, PQ_INDEX, INT8_INDEX], f"/indices-list answered {status} {names}")
     status, body = http_json(port, "GET", "/metrics")
     check(status == 200 and b"full_knn_request_time_count" in body, "/metrics answered badly")
     print("  (e) /metadata, /indices-list, /metrics: 200 and as expected")
@@ -1026,8 +1040,9 @@ def profile_search(index, qb, iters: int = 10) -> float:
 
 
 def phase_query_times(index, int8scan, originals, sample_ids, port: int, gpu: str) -> tuple[float, ...]:
-    """K3 vs plain at the served shape, search-batch p50 by route, HTTP p50
-    and QPS.  Returns (K3 ms, plain ms, K3 max abs err, K3 bound ms)."""
+    """K3 vs plain and the stock gather + `torch._int_mm` path at the served
+    shape, search-batch p50 by route, HTTP p50 and QPS.  Returns (K3 ms,
+    plain ms, K3 max abs err, K3 bound ms, stock path ms or None)."""
     import torch
 
     from clip_retrieval_tpu_torch.index.ivf_int8 import select_probes
@@ -1054,6 +1069,7 @@ def phase_query_times(index, int8scan, originals, sample_ids, port: int, gpu: st
           f"before padding, Lc={lc}, d={DIM}): {k3_ms:.4f} ms/call (runs {times['K3']}); plain version "
           f"{plain_ms:.4f} ms/call (runs {times['plain']}); {gbytes:.3f} GB moved -> {gbytes / k3_ms:.3f} TB/s, "
           f"{gbytes / k3_ms / 3.35:.3f} of 3.35 TB/s")
+    lib_ms = k3_stock_ms(args, kern, gpu)
 
     for b in (1, 32):
         qb = originals[:b]
@@ -1083,7 +1099,43 @@ def phase_query_times(index, int8scan, originals, sample_ids, port: int, gpu: st
     status, summary = http_json(port, "GET", "/metrics-summary")
     check(status == 200, "/metrics-summary failed")
     print(f"  [{gpu}] /metrics-summary over every request of this run:\n{summary.decode()}")
-    return k3_ms, plain_ms, err, 1e3 * gbytes * 1e9 / HBM_BPS
+    return k3_ms, plain_ms, err, 1e3 * gbytes * 1e9 / HBM_BPS, lib_ms
+
+
+def k3_stock_ms(args, kern, gpu: str) -> float | None:
+    """The stock PyTorch path to K3's function, timed beside K3 (not on the
+    path): the chunks gathered (`index_select`), the int8 product by
+    `torch._int_mm` (cuBLASLt, int32), then the scales and the padding mask,
+    in the plain version's order.  Two library calls and two elementwise
+    ones, so no single call; its output is held to K3's.  None where
+    `_int_mm` refuses the shapes."""
+    import torch
+
+    qq, qs, rows, scales, pos, sel = args
+    u, lc, d = sel.shape[0], rows.shape[1], rows.shape[2]
+    s = sel.long()
+
+    def stock():
+        acc = torch._int_mm(qq, rows.index_select(0, s).view(u * lc, d).t())
+        out = acc.float() * qs.float()[:, None] * scales.index_select(0, s).view(1, u * lc)
+        return torch.where(pos.index_select(0, s).view(1, u * lc) >= 0, out, float("-inf"))
+
+    try:
+        got = stock()
+    except RuntimeError as e:  # shapes or layouts the library does not take: reported, not on the path
+        print(f"  [{gpu}] gather + torch._int_mm refused K3's served shape: {e}")
+        return None
+    ref = kern()
+    torch.cuda.synchronize()
+    check(torch.equal(torch.isneginf(got), torch.isneginf(ref)), "gather + _int_mm: -inf set differs from K3's")
+    fin = torch.isfinite(ref)
+    diff = (got[fin] - ref[fin]).abs().max().item()
+    check(diff <= 1e-5, f"gather + _int_mm differs from K3 by {diff:.3e}")
+    times = [cuda_ms(stock, 20) for _ in range(2)]
+    print(f"  [{gpu}] yardstick gather (index_select) + torch._int_mm + scale/mask at the same shape: "
+          f"{float(np.mean(times)):.4f} ms/call (runs {times}; two library calls, not one; max abs diff from K3 "
+          f"{diff:.3e}; not on the path)")
+    return float(np.mean(times))
 
 
 def phase_pq_checks(pq_folder: str, pq_rows, pq_ids, pq_served, adc, gpu: str) -> dict:
@@ -1186,6 +1238,330 @@ def time_k4(ix, qr, nprobe: int, adc, gpu: str, label: str) -> dict:
             "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"]}
 
 
+# --------------------------------------------------------------------------
+# slice 4: shard -> combine -> reorder -> serve, and the entry points on ported code
+# --------------------------------------------------------------------------
+
+
+def add_counts(*counts: dict) -> dict:
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def folder_bytes(folder: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(folder) for f in files)
+
+
+def same_rows(a, b, block: int = 1 << 17) -> bool:
+    """Two (n, d) row stores (memmaps or ShardRowGathers) equal, read in blocks."""
+    return a.shape == b.shape and all(np.array_equal(np.asarray(a[i : i + block]), np.asarray(b[i : i + block]))
+                                      for i in range(0, a.shape[0], block))
+
+
+def same_ids(a, b, q, where: str):
+    """The ids of two indices' searches at B=1 (every query alone) and B=32."""
+    for i in range(q.shape[0]):
+        check(np.array_equal(a.search(q[i : i + 1], TOPK)[1], b.search(q[i : i + 1], TOPK)[1]),
+              f"{where}: B=1 ids differ at query {i}")
+    check(np.array_equal(a.search(q[:32], TOPK)[1], b.search(q[:32], TOPK)[1]), f"{where}: B=32 ids differ")
+
+
+def phase_combine_pq(pq_folder: str, pq_rows, pq_ids, kernels: dict, gpu: str) -> dict:
+    """The built pq1m index split by id range into COMBINE_SHARDS shard
+    folders sharing its trained prefix (coarse centroids, rotation,
+    codebooks; refine rows sliced by id range), merged by the
+    `index_combiner` entry point on the card.  The merged arrays must equal
+    pq1m's, and its B=1 and B=32 search ids pq1m's.  Returns the launch
+    counts of the combine and the searches."""
+    from clip_retrieval_tpu_torch.index.combiner import index_combiner
+    from clip_retrieval_tpu_torch.index.ivfpq import IVFPQIndex
+
+    t0 = time.perf_counter()
+    whole = IVFPQIndex.load(os.path.join(pq_folder, "image.index"), device="cuda")
+    ids, codes = np.asarray(whole.list_ids), np.asarray(whole.list_codes)
+    list_of = np.repeat(np.arange(whole.nlist), whole.list_sizes())
+    shards = os.path.join(WORK_DIR, "pq_shards")
+    bounds = np.linspace(0, whole.ntotal, COMBINE_SHARDS + 1).astype(np.int64)
+    for s, (lo, hi) in enumerate(zip(bounds[:-1], bounds[1:])):
+        m = (ids >= lo) & (ids < hi)
+        offsets = np.zeros(whole.nlist + 1, np.int64)
+        np.cumsum(np.bincount(list_of[m], minlength=whole.nlist), out=offsets[1:])
+        IVFPQIndex(whole.d, whole.coarse_centroids, whole.codebooks, whole.rotation, offsets, ids[m], codes[m],
+                   nprobe=whole.nprobe, refine_vectors=whole.refine_vectors[lo:hi], rerank_factor=whole.rerank_factor,
+                   device="cuda").save(os.path.join(shards, f"shard{s}"))
+    t_split = time.perf_counter() - t0
+    out = os.path.join(WORK_DIR, "pq_merged")
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    merged = index_combiner(shards, out, device="cuda")
+    wall = time.perf_counter() - t0
+    written = folder_bytes(os.path.join(out, "populated.index"))
+    check(np.array_equal(merged.list_offsets, whole.list_offsets), "merged list_offsets differ from pq1m's")
+    check(np.array_equal(np.asarray(merged.list_ids), ids), "merged per-list ids differ from pq1m's")
+    check(np.array_equal(np.asarray(merged.list_codes), codes), "merged codes differ from pq1m's")
+    check(same_rows(merged.refine_vectors, whole.refine_vectors), "merged refine store differs from pq1m's")
+    merged = IVFPQIndex.load(os.path.join(out, "populated.index"), device="cuda")
+    same_ids(merged, whole, pq_rows[pq_ids].astype(np.float32), f"merged {PQ_INDEX}")
+    counts = read_counts(kernels)
+    check(counts["k4"] > 0, "K4 did not launch for the merged IVF-PQ index's searches")
+    print(f"  [{gpu}] {PQ_INDEX} split into {COMBINE_SHARDS} shards by id range ({t_split:.1f} s), index_combiner "
+          f"wall {wall:.2f} s, {written / 1e9:.3f} GB written; list_offsets, per-list ids, codes and the refine "
+          f"store equal pq1m's; search ids identical at B=1 ({len(pq_ids)} queries) and B=32; launches {counts}")
+    return counts
+
+
+def phase_combine_int8_build(pq_corpus: str, pq_rows, gpu: str):
+    """Over the pq1m corpus's rows: one coarse quantizer (nlist INT8_NLIST)
+    trained on the card, COMBINE_SHARDS shard builds with
+    `IVFInt8Index.from_vectors(..., coarse=, id_offset=)` and a
+    whole-corpus build, then `index_combiner` over the shards into a folder
+    served beside the other two (image.index + the corpus's metadata).
+    Returns (the served folder, the whole build)."""
+    from clip_retrieval_tpu_torch.index.combiner import index_combiner
+    from clip_retrieval_tpu_torch.index.ivf_int8 import IVFInt8Index
+    from clip_retrieval_tpu_torch.ops import kmeans
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(12)
+    sample = pq_rows[np.sort(rng.choice(PQ_ROWS, 1 << 18, replace=False))].astype(np.float32)
+    coarse = kmeans.kmeans(sample, INT8_NLIST, niter=20, seed=0, device="cuda").cpu().numpy()
+    t_train = time.perf_counter() - t0
+    shards = os.path.join(WORK_DIR, "int8_shards")
+    bounds = np.linspace(0, PQ_ROWS, COMBINE_SHARDS + 1).astype(np.int64)
+    t0 = time.perf_counter()
+    for s, (lo, hi) in enumerate(zip(bounds[:-1], bounds[1:])):
+        IVFInt8Index.from_vectors(pq_rows[lo:hi], nlist=INT8_NLIST, nprobe=NPROBE, coarse=coarse, id_offset=int(lo),
+                                  device="cuda").save(os.path.join(shards, f"shard{s}"))
+    t_shards = time.perf_counter() - t0
+    whole = IVFInt8Index.from_vectors(pq_rows, nlist=INT8_NLIST, nprobe=NPROBE, coarse=coarse, device="cuda")
+    folder = os.path.join(WORK_DIR, "int8_merged")
+    t0 = time.perf_counter()
+    index_combiner(shards, folder, device="cuda")
+    wall = time.perf_counter() - t0
+    written = folder_bytes(os.path.join(folder, "populated.index"))
+    os.rename(os.path.join(folder, "populated.index"), os.path.join(folder, "image.index"))
+    shutil.copytree(os.path.join(pq_corpus, "metadata"), os.path.join(folder, "metadata"))
+    print(f"  [{gpu}] IVF-int8 over the {PQ_ROWS} x {DIM} corpus: coarse quantizer nlist {INT8_NLIST} trained in "
+          f"{t_train:.1f} s, {COMBINE_SHARDS} shard builds in {t_shards:.1f} s, index_combiner wall {wall:.2f} s, "
+          f"{written / 1e9:.3f} GB written; served as {INT8_INDEX}")
+    return folder, whole
+
+
+def phase_combine_int8(folder: str, whole, pq_rows, pq_ids, port: int, kernels: dict, gpu: str) -> dict:
+    """The merged IVF-int8 index against the whole-corpus build: equal
+    arrays, identical ids at B=1 and B=32 (K3 is bit-identical and every
+    union route exact); `get_old_to_new_mapping` and `search_to_new_ids` on
+    it; and the same answers from the running `back`, where it is the third
+    index.  Returns the launch counts."""
+    from clip_retrieval_tpu_torch.index.ivf_int8 import IVFInt8Index
+    from clip_retrieval_tpu_torch.index.metadata_order import get_old_to_new_mapping, search_to_new_ids
+
+    zero_counts(kernels)
+    merged = IVFInt8Index.load(os.path.join(folder, "image.index"), device="cuda")
+    for name in ("list_offsets", "list_ids", "q_vectors", "scales"):
+        check(np.array_equal(np.asarray(getattr(merged, name)), np.asarray(getattr(whole, name))),
+              f"merged IVF-int8 {name} differs from the whole build's")
+    q = pq_rows[pq_ids].astype(np.float32)
+    same_ids(merged, whole, q, "merged IVF-int8")
+    t0 = time.perf_counter()
+    mapping = get_old_to_new_mapping(merged)
+    new_ids = search_to_new_ids(merged, q[:32], TOPK)
+    _, old_ids = merged.search(q[:32], TOPK)
+    check(np.array_equal(new_ids, mapping[old_ids]), "search_to_new_ids disagrees with the mapping")
+    check(np.array_equal(np.sort(mapping), np.arange(merged.ntotal)), "the old->new mapping is not a permutation")
+    t_map = time.perf_counter() - t0
+    body = dict(deduplicate=False, use_safety_model=False, use_violence_detector=False)
+    for i in range(8):
+        res = knn(port, index=INT8_INDEX, embedding_input=q[i].tolist(), **body)
+        check_results(res, f"{INT8_INDEX} embedding query {i}")
+        check([r["id"] for r in res] == merged.search(q[i : i + 1], TOPK)[1][0].tolist(),
+              f"{INT8_INDEX} served ids differ from the merged index's at query {i}")
+    check_results(knn(port, index=INT8_INDEX, text="a photo of the query on the combined index"),
+                  f"{INT8_INDEX} text query")
+    counts = read_counts(kernels)
+    check(counts["k3"] > 0, "K3 did not launch for the merged IVF-int8 index")
+    print(f"  [{gpu}] {INT8_INDEX}: arrays equal the whole build's; search ids identical at B=1 ({len(pq_ids)} "
+          f"queries) and B=32; old->new mapping and search_to_new_ids at B=32 in {t_map:.2f} s; served by clip_back "
+          f"as a third index: 8 embedding queries answer the merged index's ids, a text query 200; launches {counts}")
+    h5 = importlib.util.find_spec("h5py") is not None
+    print(f"  reordered-hdf5 metadata provider (reorder_metadata_by_ivf_index): "
+          f"{'h5py present' if h5 else 'h5py is absent on this machine, so it cannot run here'}; tier-1 tests hold "
+          f"it to the JAX package on the CPU (tests/test_torch_metadata_order.py, tests/test_torch_serving.py)")
+    return counts
+
+
+def phase_arrow(pq_corpus: str, pq_ids, gpu: str):
+    """`parquet_to_arrow` over the pq1m corpus's 1M-row metadata; the arrow
+    provider's rows for the queried ids equal the parquet provider's."""
+    from clip_retrieval_tpu_torch.back.metadata import ArrowMetadataProvider, ParquetMetadataProvider
+    from clip_retrieval_tpu_torch.back.prepro import parquet_to_arrow
+
+    meta, out = os.path.join(pq_corpus, "metadata"), os.path.join(WORK_DIR, "arrow")
+    t0 = time.perf_counter()
+    parquet_to_arrow(meta, out)
+    wall = time.perf_counter() - t0
+    arrow = ArrowMetadataProvider(out)
+    ids = [int(i) for i in pq_ids]
+    cols = ["image_path", "caption"]
+    got, want = arrow.get(ids, cols), ParquetMetadataProvider(meta).get(ids, cols)
+    check(arrow.table.num_rows == PQ_ROWS, f"arrow table has {arrow.table.num_rows} rows")
+    check(got == want and got[0]["caption"] == f"row {ids[0]}", "arrow rows differ from the parquet provider's")
+    print(f"  parquet_to_arrow over {PQ_ROWS} metadata rows: {wall:.2f} s, {folder_bytes(out) / 1e6:.1f} MB; the "
+          f"arrow provider's rows for the {len(ids)} queried ids equal the parquet provider's")
+
+
+def wsgi_json(app, method: str, path: str, body=None):
+    """One in-process request to a WSGI app: (status, parsed JSON)."""
+    raw = json.dumps(body).encode() if body is not None else b""
+    environ = {"REQUEST_METHOD": method, "PATH_INFO": path, "CONTENT_LENGTH": str(len(raw)),
+               "wsgi.input": io.BytesIO(raw), "wsgi.errors": io.StringIO(), "wsgi.url_scheme": "http",
+               "SERVER_NAME": "smoke", "SERVER_PORT": "80", "QUERY_STRING": ""}
+    status = []
+    data = b"".join(app(environ, lambda s, h, exc=None: status.append(s)))
+    return status[0], json.loads(data)
+
+
+def phase_end2end(kernels: dict, gpu: str) -> tuple[str, dict]:
+    """`clip_end2end` over the main path's 512 JPEG+caption samples at
+    ViT-L/14 (run_back=False): its embeddings, index and indices_paths.json
+    load, K1 ran, and `clip_back`'s app serves the index (one text query).
+    Returns (output folder, launch counts)."""
+    import torch
+
+    from clip_retrieval_tpu_torch.back.app import make_app
+    from clip_retrieval_tpu_torch.back.options import ClipOptions
+    from clip_retrieval_tpu_torch.back.resources import load_clip_indices
+    from clip_retrieval_tpu_torch.end2end import clip_end2end
+
+    out = os.path.join(WORK_DIR, "e2e")
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    clip_end2end(input_dataset=f"{WORK_DIR}/corpus", input_format="files", clip_model=MODEL, run_back=False,
+                 device="cuda", output_folder=out)
+    wall = time.perf_counter() - t0
+    counts = read_counts(kernels)
+    emb = np.load(os.path.join(out, "embeddings", "img_emb", "img_emb_0.npy"))
+    check(emb.shape == (SAMPLES, DIM) and bool(np.isfinite(emb).all()), f"end2end embeddings {emb.shape}")
+    with open(os.path.join(out, "index", "image.json")) as f:
+        infos = json.load(f)
+    with open(os.path.join(out, "indices_paths.json")) as f:
+        paths = json.load(f)
+    check(paths == {"example_index": os.path.join(out, "index")}, f"indices_paths.json holds {paths}")
+    check(counts["k1"] == 2 * (24 + 12), f"K1 launched {counts['k1']} times in end2end's inference, expected 72")
+    resources = load_clip_indices(os.path.join(out, "indices_paths.json"), ClipOptions(
+        indice_folder="", clip_model=MODEL, columns_to_return=["image_path", "caption"],
+        provide_aesthetic_embeddings=False, device="cuda"))
+    app = make_app(resources, device="cuda")
+    status, res = wsgi_json(app, "POST", "/knn-service", {"text": "a photo of sample number 7", "modality": "image",
+                                                          "num_images": 10, "indice_name": "example_index"})
+    check(status.startswith("200") and len(res) == 10 and all(r["caption"].startswith("a photo of sample number")
+                                                                for r in res), f"end2end app answered {status}")
+    counts = read_counts(kernels)
+    del app, resources
+    torch.cuda.empty_cache()
+    print(f"  [{gpu}] clip_end2end over {SAMPLES} JPEG+caption samples at {MODEL} (run_back=False): wall {wall:.2f} s "
+          f"(model init, inference, index build with recall); autotune chose {infos['index_key']!r}, recall@40 "
+          f"{infos.get('recall@40')}; embeddings/, index/ and indices_paths.json load; clip_back's app served a text "
+          f"query (10 results); launches {counts}")
+    return out, counts
+
+
+def recording_load_index(log: list):
+    """A stand-in for `index.store.load_index` whose indices append every
+    search / range_search output to `log` (the filter phase reads what
+    `clip_filter` found from it)."""
+    from clip_retrieval_tpu_torch.index import store
+
+    real = store.load_index
+
+    def load(*args, **kwargs):
+        ix = real(*args, **kwargs)
+        for name in ("search", "range_search"):
+            fn = getattr(ix, name, None)
+            if fn is not None:
+                setattr(ix, name, lambda *a, _fn=fn, _n=name: log.append((_n, _fn(*a))) or log[-1][1])
+        return ix
+
+    return store, real, load
+
+
+def phase_filter(e2e: str, pq_folder: str, kernels: dict, gpu: str) -> dict:
+    """`clip_filter` on the end2end folder (a text query with a threshold,
+    which takes range_search on a flat index; an image-file query) and on
+    pq1m (a text query, num_results 40).  The files copied must be the
+    files of the ids found.  Returns the launch counts."""
+    from clip_retrieval_tpu_torch.filter import clip_filter
+
+    log: list = []
+    store, real, load = recording_load_index(log)
+    store.load_index = load
+    try:
+        index = os.path.join(e2e, "index")
+        with open(os.path.join(index, "image.index", "header.json")) as f:
+            kind = json.load(f)["type"]
+        text = "a photo of sample number 7"
+        zero_counts(kernels)
+        t0 = time.perf_counter()
+        clip_filter(text, os.path.join(WORK_DIR, "f_probe"), index, num_results=SAMPLES, clip_model=MODEL,
+                    device="cuda")
+        threshold = float(np.median(log.pop()[1][0][0]))
+        found = {}
+        for name, query, kw in (("threshold", text, {"threshold": threshold}),
+                                ("image", f"{WORK_DIR}/corpus/0007.jpg", {"num_results": 10})):
+            out = os.path.join(WORK_DIR, f"f_{name}")
+            clip_filter(query, out, index, clip_model=MODEL, device="cuda", **kw)
+            op, res = log.pop()
+            ids = res[2] if op == "range_search" else res[1][0][res[1][0] >= 0]
+            check(sorted(os.listdir(out)) == sorted(f"{int(i):04d}.jpg" for i in ids) and 0 < len(ids) < SAMPLES,
+                  f"filter {name}: copied {len(os.listdir(out))} files for {len(ids)} ids")
+            found[name] = (op, len(ids), int(ids[0]))
+        check(found["image"][2] == 7, f"the image query's first hit is {found['image'][2]}, not its own row")
+        e2e_counts = read_counts(kernels)
+        t_e2e = time.perf_counter() - t0
+        clip_filter("a photo of the filter query on pq1m", os.path.join(WORK_DIR, "f_pq"), pq_folder, num_results=TOPK,
+                    clip_model=MODEL, device="cuda")
+        op, res = log.pop()
+        check(op == "search" and int((res[1][0] >= 0).sum()) == TOPK, f"filter on {PQ_INDEX} found {res[1]}")
+        counts = read_counts(kernels)
+        pq_counts = {k: counts[k] - e2e_counts[k] for k in counts}
+        check(e2e_counts["k1"] > 0 and pq_counts["k1"] > 0 and pq_counts["k4"] > 0,
+              f"filter launches: end2end folder {e2e_counts}, {PQ_INDEX} {pq_counts}")
+    finally:
+        store.load_index = real
+    print(f"  [{gpu}] clip_filter on the end2end folder ({kind} index): text query with threshold {threshold:.4f} "
+          f"(the probe's median) -> {found['threshold'][0]}, {found['threshold'][1]} files copied; image-file query "
+          f"-> {found['image'][1]} files, its own row first; 3 calls in {t_e2e:.1f} s; "
+          f"launches {e2e_counts}; on {PQ_INDEX}: a text query, {TOPK} ids found (no image files there), launches "
+          f"{pq_counts}")
+    return counts
+
+
+def phase_client(port: int, originals, gpu: str):
+    """`ClipClient` (text, image file, embedding) against the running `back`:
+    the same answers as a raw POST of the body it sends."""
+    if importlib.util.find_spec("requests") is None:
+        print("  client: requests is absent on this machine, so ClipClient cannot run here; tier-1 tests drive it "
+              "over a socket (tests/test_torch_serving.py)")
+        return
+    from clip_retrieval_tpu_torch.client import ClipClient
+
+    client = ClipClient(f"http://127.0.0.1:{port}/knn-service", indice_name=INDEX_NAME, num_images=TOPK,
+                        deduplicate=False, use_safety_model=False, use_violence_detector=False)
+    path = os.path.join(WORK_DIR, "client.jpg")
+    with open(path, "wb") as f:
+        f.write(base64.b64decode(jpeg_b64(21)))
+    base = {"deduplicate": False, "use_safety_model": False, "use_violence_detector": False, "use_mclip": False,
+            "aesthetic_score": 9, "aesthetic_weight": 0.5, "num_result_ids": TOPK}
+    text, emb = {"text": "a photo of the client's query"}, {"embedding_input": originals[3].tolist()}
+    for name, query, raw in (("text", text, text), ("image file", {"image": path}, {"image": jpeg_b64(21)}),
+                             ("embedding", emb, emb)):
+        got, want = client.query(**query), knn(port, **base, **raw)
+        check([r["id"] for r in got] == [r["id"] for r in want], f"ClipClient {name} ids differ from raw HTTP")
+        check(np.allclose([r["similarity"] for r in got], [r["similarity"] for r in want], atol=1e-5, rtol=0),
+              f"ClipClient {name} similarities differ from raw HTTP")
+    print(f"  [{gpu}] ClipClient text, image-file and embedding queries against clip_back: the raw HTTP answers "
+          f"({TOPK} results each)")
+
+
 def run() -> int:
     import torch
 
@@ -1253,8 +1629,13 @@ def run() -> int:
         pq_ids = np.sort(np.random.default_rng(11).choice(PQ_ROWS, N_QUERIES, replace=False))
         pq_probed = phase_pq_probe(pq_folder, pq_rows, pq_ids, gpu)
 
+        phase = "combine, IVF-int8 build"
+        t0 = time.perf_counter()
+        int8_folder, int8_whole = phase_combine_int8_build(corpus, pq_rows, gpu)
+        print(f"  phase 'combine, IVF-int8 build' wall {time.perf_counter() - t0:.1f} s")
+
         phase = "index"
-        index, sample_ids, originals = phase_index(gpu, {PQ_INDEX: pq_folder})
+        index, sample_ids, originals = phase_index(gpu, {PQ_INDEX: pq_folder, INT8_INDEX: int8_folder})
 
         phase = "served path"
         served_counts, served, pq_served = phase_serve(kernels, sample_ids, originals, pq_rows, pq_ids, pq_probed,
@@ -1264,15 +1645,48 @@ def run() -> int:
         phase_recall(index, int8scan, originals, served)
 
         phase = "query times"
-        k3_ms, k3_plain_ms, k3_err_served, k3_bound = phase_query_times(
+        k3_ms, k3_plain_ms, k3_err_served, k3_bound, k3_lib_ms = phase_query_times(
             index, int8scan, originals, sample_ids, served_counts["port"], gpu
         )
 
         phase = "IVF-PQ checks"
         k4 = phase_pq_checks(pq_folder, pq_rows, pq_ids, pq_served, adc_scan, gpu)
 
+        phase = "combine, IVF-PQ"
+        t0 = time.perf_counter()
+        combine_counts = phase_combine_pq(pq_folder, pq_rows, pq_ids, kernels, gpu)
+        print(f"  phase 'combine, IVF-PQ' wall {time.perf_counter() - t0:.1f} s")
+
+        phase = "combine, IVF-int8"
+        t0 = time.perf_counter()
+        combine_counts = add_counts(combine_counts, phase_combine_int8(
+            int8_folder, int8_whole, pq_rows, pq_ids, served_counts["port"], kernels, gpu))
+        del int8_whole
+        print(f"  phase 'combine, IVF-int8' wall {time.perf_counter() - t0:.1f} s")
+
+        phase = "arrow"
+        t0 = time.perf_counter()
+        phase_arrow(corpus, pq_ids, gpu)
+        print(f"  phase 'arrow' wall {time.perf_counter() - t0:.1f} s")
+
+        phase = "end2end"
+        t0 = time.perf_counter()
+        e2e_folder, e2e_counts = phase_end2end(kernels, gpu)
+        print(f"  phase 'end2end' wall {time.perf_counter() - t0:.1f} s")
+
+        phase = "filter"
+        t0 = time.perf_counter()
+        filter_counts = phase_filter(e2e_folder, pq_folder, kernels, gpu)
+        print(f"  phase 'filter' wall {time.perf_counter() - t0:.1f} s")
+
+        phase = "client"
+        t0 = time.perf_counter()
+        phase_client(served_counts["port"], originals, gpu)
+        print(f"  phase 'client' wall {time.perf_counter() - t0:.1f} s")
+
         phase = "kernels line"
-        paths = {"inference": inference_counts, "index": index_counts, "serving": served_counts, "sdpa": sdpa_counts}
+        paths = {"inference": inference_counts, "index": index_counts, "serving": served_counts, "sdpa": sdpa_counts,
+                 "combine": combine_counts, "end2end": e2e_counts, "filter": filter_counts}
 
         def by_path(key: str) -> dict:
             return {name: counts[key] for name, counts in paths.items()}
@@ -1284,7 +1698,7 @@ def run() -> int:
             ("k2", "flash_attention", "flash_packed.cu", "clip_retrieval_tpu/ops/flash.py:259",
              max(k2_err, k2_err_path), k2_ms, k2_plain_ms, att_bound, att_by, k2_lib_ms),
             ("k3", "int8_gather_scan", "int8_scan.cu", "clip_retrieval_tpu/ops/int8scan.py:130",
-             max(k3_err, k3_err_served), k3_ms, k3_plain_ms, k3_bound, "bytes", None),
+             max(k3_err, k3_err_served), k3_ms, k3_plain_ms, k3_bound, "bytes", k3_lib_ms),
             ("k4", "adc_scan", "adc_scan.cu", "clip_retrieval_tpu/ops/adc_scan.py:81",
              max(k4_err, k4["max_abs_err"]), k4["ms"], k4["plain_ms"], k4["bound_ms"], k4["bound_by"],
              k4["library_ms"]),

@@ -337,6 +337,21 @@ class KnnService:
     # -- post filters ------------------------------------------------------
 
     @staticmethod
+    def hash_based_dedup(embeddings: np.ndarray) -> list[int]:
+        """Cheap dedup on rounded-embedding hashes (reference
+        clip_back.py:257-268); connected-components dedup below is the one
+        used by the query flow."""
+        seen: set = set()
+        to_remove = []
+        for i, embedding in enumerate(embeddings):
+            h = hash(np.round(embedding, 2).tobytes())
+            if h in seen:
+                to_remove.append(i)
+            else:
+                seen.add(h)
+        return to_remove
+
+    @staticmethod
     def connected_components(neighbors: dict) -> list[list]:
         seen: set = set()
         groups = []

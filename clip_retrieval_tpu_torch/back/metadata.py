@@ -3,15 +3,16 @@
 Copy of `clip_retrieval_tpu/back/metadata.py`: three interchangeable
 `get(ids, cols)` backends and the same lazy conversion cascade as the
 upstream clip-retrieval `clip_back.py`: arrow = the scale path (zero-copy
-mmap), hdf5 = a one-time parquet→hdf5 cache, parquet = in-RAM pandas for
-small corpora.  The IVF-reordered hdf5 cache needs
-`index/metadata_order.py`, which is not ported yet (ROADMAP queue 1, item
-10), and raises.
+mmap), hdf5 = a one-time parquet→hdf5 cache (in id order, or in IVF-list
+order with `reorder_metadata_by_ivf_index`: `metadata_reordered.hdf5` and
+the int64 `ivf_old_to_new_mapping.npy` memmap, on-disk contracts shared with
+the JAX package), parquet = in-RAM pandas for small corpora.
 """
 
 from __future__ import annotations
 
 import os
+import tempfile
 from pathlib import Path
 from typing import Any, List, Sequence
 
@@ -209,8 +210,10 @@ def load_metadata_provider(
     use_arrow: bool,
 ):
     """Provider selection + lazy conversion cascade; returns (provider,
-    ivf_old_to_new_mapping), the mapping always None here."""
+    ivf_old_to_new_mapping), the mapping None unless the metadata is served
+    in IVF order (reference clip_back.py:618-653)."""
     parquet_folder = indice_folder + "/metadata"
+    ivf_old_to_new_mapping = None
     if reorder_metadata_by_ivf_index and (use_arrow or not enable_hdf5):
         print(
             "WARNING: reorder_metadata_by_ivf_index requires the hdf5 "
@@ -221,12 +224,24 @@ def load_metadata_provider(
         return ArrowMetadataProvider(parquet_folder), None
     if enable_hdf5:
         if reorder_metadata_by_ivf_index:
-            raise NotImplementedError(
-                "reorder_metadata_by_ivf_index needs index/metadata_order.py, which is not ported yet "
-                "(ROADMAP queue 1, item 10)"
-            )
-        hdf5_path = indice_folder + "/metadata.hdf5"
-        if not os.path.exists(hdf5_path):
-            parquet_to_hdf5(parquet_folder, hdf5_path, columns_to_return)
-        return Hdf5MetadataProvider(hdf5_path), None
+            from ..index.metadata_order import Hdf5Sink, external_sort_parquet, get_old_to_new_mapping, re_order_parquet
+
+            hdf5_path = indice_folder + "/metadata_reordered.hdf5"
+            mapping_path = indice_folder + "/ivf_old_to_new_mapping.npy"
+            if not os.path.exists(mapping_path):
+                mapping = get_old_to_new_mapping(image_index)
+                mm = np.memmap(mapping_path, dtype="int64", mode="w+", shape=mapping.shape)
+                mm[:] = mapping
+                mm.flush()
+                del mm
+            ivf_old_to_new_mapping = np.memmap(mapping_path, dtype="int64", mode="r")
+            if not os.path.exists(hdf5_path):
+                with tempfile.TemporaryDirectory() as tmpdir:
+                    re_order_parquet(image_index, parquet_folder, tmpdir, columns_to_return)
+                    external_sort_parquet(Hdf5Sink(hdf5_path, columns_to_return), tmpdir)
+        else:
+            hdf5_path = indice_folder + "/metadata.hdf5"
+            if not os.path.exists(hdf5_path):
+                parquet_to_hdf5(parquet_folder, hdf5_path, columns_to_return)
+        return Hdf5MetadataProvider(hdf5_path), ivf_old_to_new_mapping
     return ParquetMetadataProvider(parquet_folder), None

@@ -1,14 +1,14 @@
-"""clip-retrieval-tpu-torch CLI: the `inference`, `index` and `back`
-subcommands of the port.
+"""clip-retrieval-tpu-torch CLI: the port's subcommands.
 
 Same signature-driven argparse as `clip_retrieval_tpu/cli.py`: the options
 of a subcommand are the target function's parameters, so
 `clip-retrieval-tpu-torch inference --input_dataset d --output_folder o
 --clip_model ViT-L/14` calls `inference.main.main(...)` and
-`clip-retrieval-tpu-torch index --embeddings_folder o --index_folder i` calls
-`index.build.clip_index(...)` and
 `clip-retrieval-tpu-torch back --indices_paths p.json --device cpu` calls
-`back.app.clip_back(...)`.  Also runnable as
+`back.app.clip_back(...)`.  The port has 9 of the JAX CLI's 12 subcommands:
+`inference`, `index`, `filter`, `back`, `front`, `end2end`, `index_combiner`,
+`parquet_to_arrow` and `inference.worker` (`convert`, `convert.nsfw_keras`
+and `inference.slurm_worker` are not ported yet).  Also runnable as
 `python -m clip_retrieval_tpu_torch.cli ...`.
 """
 
@@ -34,12 +34,52 @@ def _lazy_commands() -> dict[str, Callable[[], Callable]]:
 
         return fn
 
+    def filter_():
+        from .filter import clip_filter as fn
+
+        return fn
+
     def back():
         from .back.app import clip_back as fn
 
         return fn
 
-    return {"inference": inference, "index": index, "back": back}
+    def front():
+        from .front import clip_front as fn
+
+        return fn
+
+    def end2end():
+        from .end2end import clip_end2end as fn
+
+        return fn
+
+    def index_combiner():
+        from .index.combiner import index_combiner as fn
+
+        return fn
+
+    def parquet_to_arrow():
+        from .back.prepro import parquet_to_arrow as fn
+
+        return fn
+
+    def inference_worker():
+        from .inference.worker import worker as fn
+
+        return fn
+
+    return {
+        "inference": inference,
+        "index": index,
+        "filter": filter_,
+        "back": back,
+        "front": front,
+        "end2end": end2end,
+        "index_combiner": index_combiner,
+        "parquet_to_arrow": parquet_to_arrow,
+        "inference.worker": inference_worker,
+    }
 
 
 def _coerce(value: str) -> Any:

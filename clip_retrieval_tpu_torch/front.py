@@ -1,9 +1,10 @@
-"""Static web UI routes: the SPA in `front/` at the repo root + /config.json.
+"""clip-front: static web UI server + /config.json.
 
-Copy of `clip_retrieval_tpu/front.py::add_static_routes`, which the port's
-`back/app.py` registers on its router.  The SPA itself is a data directory
-at the root of the checkout (`front/`), shared by both packages;
-CRT_FRONT_DIR points elsewhere.
+Copy of `clip_retrieval_tpu/front.py`: `add_static_routes`, which the port's
+`back/app.py` registers on its router, and `clip_front`, which serves the
+same routes standalone (no device).  The SPA itself is a data directory at
+the root of the checkout (`front/`), shared by both packages; CRT_FRONT_DIR
+points elsewhere.
 """
 
 from __future__ import annotations
@@ -49,3 +50,17 @@ def add_static_routes(router, default_backend, default_index, url_column):
             router.route("GET", rel, file_handler(p))
             if rel == "/index.html":
                 router.route("GET", "/", file_handler(p))
+
+
+def clip_front(
+    default_backend: str | None = None,
+    default_index: str | None = None,
+    url_column: str = "url",
+    port: int = 1235,
+):
+    """Serve the static front end standalone."""
+    from .back.app import WsgiRouter, serve
+
+    router = WsgiRouter()
+    add_static_routes(router, default_backend, default_index, url_column)
+    serve(router, port)

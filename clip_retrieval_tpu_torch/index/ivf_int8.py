@@ -14,8 +14,9 @@ the other) and the same search semantics:
   chunks (¼-pow2 bucketed, padded with the all-padding chunk); "static"
   scans the worst-case budget in one dispatch; "device" scans an adaptive
   cap in one dispatch and re-dispatches when the union overflowed it;
-  "auto" takes static for a single query and exact otherwise — still the
-  JAX package's rule, which waits for an H100 measurement;
+  "auto" takes exact at every batch size (`resolve_union`: the route sweep
+  on the H100 found it the fastest at B 1-64; the JAX package takes static
+  for a single query);
 - the scan is kernel K3 (`ops/int8scan.py::int8_gather_scan`) in every mode:
   the host-built selection in exact mode, the chunks picked on the device
   from the chunk scores in static and device modes.
@@ -383,13 +384,16 @@ class IVFInt8Index:
 
     def resolve_union(self, padded_b: int) -> str:
         """The union route of a batch of padded size `padded_b`.  For
-        union="auto": a single query's probed union is the static worst case
-        (its own nprobe lists), so one dispatch wins there; larger batches
-        overlap probes and take exact sizing.  (The JAX package's rule; the
-        crossover has not been measured on the H100.)"""
+        union="auto": exact at every size.  The route sweep
+        (`tools/sweep_routes.py`, 10M x 768, nlist 16,384, nprobe 64, on an
+        H100 80GB HBM3 at 700 W) found exact the fastest at each B of 1-64
+        in two runs but once (B=2, by 0.07 ms, reversed by 0.79 ms in the
+        other run), the single query included, where static's one dispatch
+        had won on the TPU: the read-back of the probed lists costs less
+        than scanning the static worst-case budget."""
         if self.union != "auto":
             return self.union
-        return "static" if padded_b <= 1 else "exact"
+        return "exact"
 
     def _device_union_cap(self, padded_b: int, p: int) -> int:
         """Adaptive chunk cap for union="device": seeded at the ¼-pow2 of the

@@ -22,13 +22,16 @@ Device search (an index whose codes fit the device, see `_device_room`):
      (B, M, 256) f32 ADC tables plus the q·centroid coarse term;
   3. an exact top-k over each query's slots, mapped back to CSR positions,
      and to ids on the host.
-  The chunk budget is the static worst case (the nprobe largest lists) when
-  lists are uniform — one dispatch, no read-back before the scan — and
-  per-query power-of-two buckets under skew, after one read-back of the
-  (B,) probed chunk totals, so one query probing a giant list does not make
-  every query of the batch scan its budget.
+  The chunk budget is the static worst case (the nprobe largest lists) —
+  one dispatch, no read-back before the scan — up to 2^26 score slots a
+  batch, and per-query power-of-two buckets past that, after one read-back
+  of the (B,) probed chunk totals (`_budget_route`, set from the route sweep
+  on the H100: the static budget won at every batch of 1-256 even on skewed
+  lists, where most of its chunks are empty).
 Indices that do not fit scan on the host through the C++ scanner
-(`native/adc_scan.cpp`), or numpy where no compiler exists.
+(`native/adc_scan.cpp`), or numpy where no compiler exists; an index that
+fits always searches on the device, which the route sweep found 15-80x
+faster than the host scan at every batch size of 1-256 on the H100.
 
 What differs from the JAX package: every device route scores through K4 on
 CUDA (its plain version on the CPU), so `CRT_IVFPQ_SCORER`/`_pick_scorer`
@@ -59,7 +62,9 @@ from .ivf_int8 import _UPLOAD_ROWS, _next_pow2, _readback, select_probes
 
 LOGGER = logging.getLogger("clip_back")
 _SCAN_RESERVE = 2 << 30  # bytes left beside the codes for the scan's transients (≤ 1 GiB of scores per dispatch)
-_STATIC_BUDGET_MAX = 1 << 21  # rows: one static-budget dispatch when the worst case is within this
+# score slots (B · static chunk budget · C) up to which a batch takes the static budget: the largest worklist of the
+# route sweep (tools/sweep_routes.py, H100 80GB HBM3 at 700 W), which found it ahead of the buckets or level with them
+_STATIC_SLOTS_MAX = 1 << 26
 _SLOTS_PER_DISPATCH = 1 << 28  # bound on B·budget·C score slots of one K4 dispatch (1 GiB of f32)
 
 
@@ -162,7 +167,6 @@ class IVFPQIndex:
         self._on_device = None  # decided when the codes are first searched (`_fits_device`)
         self._device_lock = threading.Lock()
         self._id_to_pos = None
-        self._sizes_desc_cumsum = None
         self._chunks_desc_cumsum = None
 
     # -- basic props -------------------------------------------------------
@@ -264,35 +268,37 @@ class IVFPQIndex:
             return self._search_device(queries, k, nprobe)
         return self._search_host(queries, k, nprobe)
 
-    def _static_budget(self, nprobe: int) -> int:
-        """Worst-case probed rows of any query: the nprobe largest lists."""
-        if self._sizes_desc_cumsum is None:
-            self._sizes_desc_cumsum = np.cumsum(np.sort(self.list_sizes())[::-1])
-        return int(self._sizes_desc_cumsum[min(nprobe, self.nlist) - 1])
-
     def _static_chunk_budget(self, nprobe: int) -> int:
         """Worst-case probed chunks: the nprobe largest ceil(size/C)."""
         if self._chunks_desc_cumsum is None:
             self._chunks_desc_cumsum = np.cumsum(np.sort(-(-self.list_sizes() // _ALIGN))[::-1])
         return int(self._chunks_desc_cumsum[min(nprobe, self.nlist) - 1])
 
-    def _skew_factor(self, nprobe: int) -> tuple[int, int]:
-        """(worst_chunks, expected_chunks): the static worst-case chunk budget
-        vs what a typical query probes; worst ≫ expected is the skew regime."""
-        worst_chunks = self._static_chunk_budget(nprobe)
-        total_chunks = int(self._chunks_desc_cumsum[-1])
-        expected = max(8, total_chunks * min(nprobe, self.nlist) // max(self.nlist, 1))
-        return worst_chunks, expected
+    def _static_nchunk_q(self, nprobe: int) -> int:
+        """Chunks per query of the static budget: the worst case to a power
+        of two, at least 8."""
+        return _next_pow2(max(self._static_chunk_budget(nprobe), 8))
+
+    def _budget_route(self, nprobe: int, b: int) -> str:
+        """"static" (one budget for every query, no read-back before the
+        scan) or "buckets" (per-query budgets after one read-back of the
+        probed totals) for a batch of b queries at nprobe.  On the H100 the
+        static budget won at every batch of B 1-256 in two runs of the route
+        sweep, on skewed lists whose static budget is ~75 % empty chunks, by
+        0.1-2.7 ms of a search batch, but for one tie (0.09 ms at B=256,
+        nprobe 32).  A batch takes the static budget up to the sweep's
+        largest worklist (`_STATIC_SLOTS_MAX` score slots), the buckets past
+        it, where no measurement reaches."""
+        return "static" if b * self._static_nchunk_q(nprobe) * _ALIGN <= _STATIC_SLOTS_MAX else "buckets"
 
     def _chunk_buckets(self, dv: dict, probe_idx: torch.Tensor, nprobe: int) -> tuple[dict[int, np.ndarray], bool]:
-        """(chunk budget → the queries scanned with it, skewed): one static
-        budget for every query when lists are uniform, per-query power-of-two
-        buckets (after one read-back of the probed totals) under skew."""
-        worst_chunks, expected = self._skew_factor(nprobe)
-        if worst_chunks > 4 * expected or self._static_budget(nprobe) > _STATIC_BUDGET_MAX:
+        """(chunk budget → the queries scanned with it, bucketed): one static
+        budget for every query, or per-query power-of-two buckets (after one
+        read-back of the probed totals), as `_budget_route` picks."""
+        if self._budget_route(nprobe, probe_idx.shape[0]) == "buckets":
             totals = dv["csizes"][probe_idx].sum(dim=1).cpu().numpy()
             return _budget_buckets(totals, 8), True
-        return {_next_pow2(max(worst_chunks, 8)): np.arange(probe_idx.shape[0])}, False
+        return {self._static_nchunk_q(nprobe): np.arange(probe_idx.shape[0])}, False
 
     def _search_device(self, queries: np.ndarray, k: int, nprobe: int) -> Tuple[np.ndarray, np.ndarray]:
         """Chunk-worklist ADC scan on the device (see module docstring)."""

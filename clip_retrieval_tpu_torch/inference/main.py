@@ -66,16 +66,24 @@ def main(
     checkpoint: str | None = None,
     mclip_model: str = "",
     use_mclip: bool = False,
+    use_jit: bool = True,  # accepted for CLI parity; PyTorch runs eagerly
     compute_dtype: str = "auto",
     distribution_strategy: str = "sequential",
     wds_number_file_per_input_file: int = 10000,
     output_partition_count: int | None = None,
     wandb_project: str = "clip_retrieval",
     enable_wandb: bool = False,
+    clip_cache_path: str | None = None,
     device: str = "cuda",
 ):
     """Compute CLIP embeddings for a folder or webdataset corpus."""
     resolve_device(device)  # fail before any work when the GPU is missing
+    if not use_jit:
+        print("WARNING: use_jit=False is accepted for CLI parity but ignored — the port runs PyTorch eagerly, "
+              "there is nothing to jit")
+    if clip_cache_path is not None:
+        print("WARNING: clip_cache_path is accepted for CLI parity but ignored — pass the checkpoint path via "
+              "clip_model ('ViT-B/32:/path/to/ckpt.pt') or checkpoint instead")
     if input_format == "webdataset":
         patterns = [input_dataset] if isinstance(input_dataset, str) else input_dataset
         input_dataset = [url for pattern in patterns for url in braceexpand(pattern)]

@@ -84,15 +84,15 @@ ABLATIONS = {
 def served_worklist(ix, qr: torch.Tensor, nprobe: int):
     """K4's arguments for the queries qr (rotated) at nprobe, as the device
     route of `IVFPQIndex._search_device` builds them (the largest bucket on
-    the skew route).  Returns (args, route, chunks per query)."""
+    the bucket route).  Returns (args, route, chunks per query)."""
     from ..index.ivfpq import _worklist, probe
 
     dv = ix._ensure_device()
     probe_vals, probe_idx = probe(qr, dv["coarse"], nprobe)
-    buckets, skewed = ix._chunk_buckets(dv, probe_idx, nprobe)
+    buckets, bucketed = ix._chunk_buckets(dv, probe_idx, nprobe)
     nchunk_q = max(buckets)
     args, _, _ = _worklist(qr, probe_vals, probe_idx, dv, nchunk_q)
-    return args, "skew buckets, the largest" if skewed else "static budget", nchunk_q
+    return args, "budget buckets, the largest" if bucketed else "static budget", nchunk_q
 
 
 def k4_bound(args, clock_hz: float) -> dict:

@@ -79,6 +79,61 @@ def test_sources_have_no_import_of_the_jax_package():
     assert not offenders
 
 
+# the modules of slice 4 (shard → combine → reorder → serve, and the entry points on ported code)
+SLICE4 = ["clip_retrieval_tpu_torch.index.combiner", "clip_retrieval_tpu_torch.index.metadata_order",
+          "clip_retrieval_tpu_torch.back.prepro", "clip_retrieval_tpu_torch.filter",
+          "clip_retrieval_tpu_torch.end2end", "clip_retrieval_tpu_torch.client", "clip_retrieval_tpu_torch.front",
+          "clip_retrieval_tpu_torch.tools.sweep_routes", "chip_smoke"]
+
+
+@pytest.mark.parametrize("module", SLICE4)
+def test_slice4_sources_import_neither_jax_nor_the_jax_package(module):
+    text = (ROOT / (module.replace(".", "/") + ".py")).read_text()
+    assert not re.search(r"^\s*(import jax|from jax)", text, re.M)
+    assert not re.search(r"^\s*(from|import)\s+clip_retrieval_tpu(\.|\s|$)", text, re.M)
+
+
+def test_importing_the_slice4_modules_leaves_both_out():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {SLICE4!r}: importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules if k in ('jax', 'clip_retrieval_tpu') or k.startswith(('jax.', "
+        "'jaxlib', 'clip_retrieval_tpu.')))\n"
+        "print('OK' if not bad else 'BAD ' + ' '.join(bad[:5]))\n"
+    )
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("OK"), proc.stdout
+
+
+def test_new_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    """`filter`, `end2end` and `index_combiner` raise on their default
+    device without a GPU, before any work; `parquet_to_arrow`, `clip_front`
+    and `ClipClient` touch no device and take none."""
+    import dataclasses
+    import inspect
+
+    from clip_retrieval_tpu_torch.back.prepro import parquet_to_arrow
+    from clip_retrieval_tpu_torch.client import ClipClient
+    from clip_retrieval_tpu_torch.end2end import clip_end2end
+    from clip_retrieval_tpu_torch.filter import clip_filter
+    from clip_retrieval_tpu_torch.front import clip_front
+    from clip_retrieval_tpu_torch.index.combiner import index_combiner
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (
+        lambda: clip_filter("q", str(tmp_path / "f"), str(tmp_path / "missing")),
+        lambda: clip_end2end(output_folder=str(tmp_path / "e"), input_dataset="x"),
+        lambda: index_combiner(str(tmp_path / "missing"), str(tmp_path / "m")),
+    ):
+        with pytest.raises(RuntimeError, match="is_available"):
+            call()
+    assert not list(tmp_path.iterdir())
+    for fn in (parquet_to_arrow, clip_front):
+        assert "device" not in inspect.signature(fn).parameters
+    assert "device" not in {f.name for f in dataclasses.fields(ClipClient)}
+
+
 def test_mapper_default_device_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):

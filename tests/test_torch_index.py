@@ -116,17 +116,17 @@ def test_ivf_cross_load_both_ways(saved, tmp_path):
 def test_ivf_search_matches_jax(saved, corpus, union, b):
     _, q = corpus
     path = str(saved / "ivf")
-    jx = _jax_ivf(path, union)
     tx = TIVF.load(path, device="cpu")
     tx.union = union
+    jx = _jax_ivf(path, tx.resolve_union(b))  # the JAX route that the port's takes
     _close(tx.search(q[:b], K), jx.search(q[:b], K))
     tv, ti, te = tx.search_and_reconstruct(q[:b], K)
     jv, ji, je = jx.search_and_reconstruct(q[:b], K)
     _close((tv, ti), (jv, ji))
     np.testing.assert_array_equal(te, je)
     assert isinstance(tx.last_union_chunks, int) and tx.last_union_chunks > 0
-    # the route of a batch is a function of its padded size
-    assert tx.resolve_union(1) == ("static" if union == "auto" else union)
+    # the route of a batch is a function of its padded size; "auto" is exact at every size (the H100 sweep)
+    assert tx.resolve_union(1) == ("exact" if union == "auto" else union)
     assert tx.resolve_union(4) == ("exact" if union == "auto" else union)
 
 

@@ -5,8 +5,9 @@ rotation, CSR lists of codes and ids, fp16 refine rows).  On the CPU the
 JAX index scans with its exact-f32 XLA route (`_scan_device`); the port
 scans every device route through K4's plain version.  Ids must be identical
 on this tie-free data and scores within 1e-5, on a uniform fixture (the
-static chunk-budget route) and a skewed one (per-query budget buckets), with
-k past the candidates, probes of empty lists and the refine tier.  The host
+static chunk-budget route) and a skewed one (the port's static budget, the
+JAX package's per-query budget buckets), with k past the candidates, probes
+of empty lists and the refine tier.  The host
 C++ scan (`_search_host`) is identical in both packages, and folders
 cross-load both ways.  Lists are probed by q·c in both packages; one
 fixture's centroids have unequal norms, as trained ones do, where that rule
@@ -102,23 +103,30 @@ def test_search_matches_jax(case, b, request):
 
 
 def test_routes_scan_through_k4(uniform, skewed, monkeypatch):
-    """The uniform index takes one static-budget dispatch, the skewed one a
-    dispatch per budget bucket; every one scores through `adc_scan`."""
+    """A batch within `_STATIC_SLOTS_MAX` score slots takes one static-budget
+    dispatch, on uniform and on skewed lists (the H100 route sweep's rule);
+    past it, a dispatch per budget bucket, with the same answers.  Every
+    dispatch scores through `adc_scan`."""
     calls = []
     real = t_ivfpq.adc_scan
     monkeypatch.setattr(t_ivfpq, "adc_scan", lambda *a: calls.append(a[2].shape[0]) or real(*a))
     _, tx = _pair(uniform, nprobe=4)
-    worst, expected = tx._skew_factor(4)
-    assert worst <= 4 * expected
     tx.search(_queries(uniform, 5, 0), K)
-    assert len(calls) == 1 and calls[0] == 5 * t_ivfpq._next_pow2(max(worst, 8))
+    assert len(calls) == 1 and calls[0] == 5 * tx._static_nchunk_q(4) == 5 * t_ivfpq._next_pow2(
+        max(tx._static_chunk_budget(4), 8))
     calls.clear()
     _, sx = _pair(skewed, nprobe=4)
-    worst, expected = sx._skew_factor(4)
-    assert worst > 4 * expected
     q = np.concatenate([skewed["coarse_centroids"][:1], _queries(skewed, 4, 1)])  # one query probes the giant list
-    sx.search(q, K)
+    assert sx._budget_route(4, 5) == "static"
+    static = sx.search(q, K)
+    assert len(calls) == 1
+    calls.clear()
+    slots = 5 * sx._static_nchunk_q(4) * t_ivfpq._ALIGN
+    monkeypatch.setattr(t_ivfpq, "_STATIC_SLOTS_MAX", slots - 1)
+    assert sx._budget_route(4, 5) == "buckets" and sx._budget_route(4, 4) == "static"
+    buckets = sx.search(q, K)
     assert len(calls) >= 2
+    _close(buckets, static)
 
 
 def test_k_past_candidates_and_empty_lists(skewed):

@@ -8,6 +8,13 @@ same violence-prompt file in a local cache.  The same requests go to both
 apps: ids must be identical and similarities within 1e-4 (the text and image
 queries are encoded by two implementations of one model).  Both packages'
 `/metrics` are read in this one process: each renders its own registry.
+
+The port's `ClipClient` runs against the port's app over a real socket and
+must get the JAX client's and a raw POST's answers.  An IVF16,PQ16 index
+built by the JAX `clip_index` is prepared for IVF-reordered metadata by each
+package (`ivf_old_to_new_mapping.npy`, `metadata_reordered.hdf5`, byte-equal
+between them) and served by both packages from either preparation, with the
+same ids and metadata per result.
 """
 
 import base64
@@ -333,3 +340,178 @@ def test_safety_mlp_npz_written_by_jax_loads_in_the_port(tmp_path):
     emb = _unit(np.random.default_rng(4).normal(size=(6, D)))
     np.testing.assert_allclose(tm.predict(emb), jm2.predict(emb), atol=1e-6, rtol=1e-5)
     np.testing.assert_allclose(t_safety.MLP.random(D, seed=3, device="cpu").predict(emb), jm.predict(emb), atol=1e-5, rtol=1e-5)
+
+
+# -- ClipClient over a real socket ---------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def live_port(served):
+    """The port's app on a wsgiref socket server (daemon thread)."""
+    import http.client
+    import socket
+    import threading
+    import time
+
+    from clip_retrieval_tpu_torch.back.app import serve
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    threading.Thread(target=serve, args=(served["torch"], port, "127.0.0.1", "wsgiref"), daemon=True).start()
+    deadline = time.monotonic() + 60
+    while True:
+        try:
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=5)
+            conn.request("GET", "/health")
+            assert conn.getresponse().status == 200
+            conn.close()
+            return port
+        except OSError:
+            assert time.monotonic() < deadline, "the wsgiref server did not come up"
+            time.sleep(0.1)
+
+
+@pytest.mark.parametrize("kind", ["text", "image", "embedding"])
+def test_clip_client_matches_jax_client_and_raw_http(served, live_port, tmp_path, kind):
+    """The port's `ClipClient` against the port's `back` over a socket: the
+    JAX package's client and a raw POST with the same body get the same
+    answers."""
+    import http.client
+
+    from clip_retrieval_tpu.client import ClipClient as JClient
+    from clip_retrieval_tpu_torch.client import ClipClient, Modality
+
+    url = f"http://127.0.0.1:{live_port}/knn-service"
+    opts = dict(indice_name="test_index", num_images=6, deduplicate=False, use_safety_model=False,
+                use_violence_detector=False)
+    if kind == "text":
+        query = {"text": "a photo of a red bus"}
+    elif kind == "image":
+        path = tmp_path / "q.jpg"
+        path.write_bytes(base64.b64decode(_jpeg_b64((20, 200, 90))))
+        query = {"image": str(path)}
+    else:
+        query = {"embedding_input": served["x"][17].tolist()}
+    got = ClipClient(url, modality=Modality.IMAGE, **opts).query(**query)
+    assert got == JClient(url, **opts).query(**query)
+    body = {"indice_name": "test_index", "num_images": 6, "num_result_ids": 6, "modality": "image",
+            "deduplicate": False, "use_safety_model": False, "use_violence_detector": False,
+            "aesthetic_score": 9, "aesthetic_weight": 0.5, "use_mclip": False}
+    if kind == "image":
+        body["image"] = base64.b64encode(path.read_bytes()).decode()
+    else:
+        body.update(query)
+    conn = http.client.HTTPConnection("127.0.0.1", live_port, timeout=30)
+    try:
+        conn.request("POST", "/knn-service", body=json.dumps(body), headers={"Content-Type": "application/json"})
+        raw = json.loads(conn.getresponse().read())
+    finally:
+        conn.close()
+    assert got == raw and len(got) == 6
+    assert {"id", "similarity", "caption", "url"} <= set(got[0])
+    if kind == "embedding":
+        assert got[0]["id"] == 17
+
+
+def test_clip_client_rejects_two_or_no_inputs():
+    from clip_retrieval_tpu_torch.client import ClipClient
+
+    client = ClipClient("http://127.0.0.1:9/knn-service")
+    with pytest.raises(ValueError, match="Only one"):
+        client.query(text="a", image="b")
+    with pytest.raises(ValueError, match="Either text or image"):
+        client.query()
+
+
+def test_hash_based_dedup_matches_jax(served):
+    from clip_retrieval_tpu.back.knn import KnnService as JKnn
+    from clip_retrieval_tpu_torch.back.knn import KnnService as TKnn
+
+    emb = served["x"][:40].copy()
+    emb[[5, 9]] = emb[3]  # exact repeats
+    emb[20] = emb[2] + 1e-4  # equal after rounding to 2 decimals
+    got = TKnn.hash_based_dedup(emb)
+    assert got == JKnn.hash_based_dedup(emb) and {5, 9, 20} <= set(got)
+
+
+# -- IVF-reordered metadata, prepared by either package, served by the other ----
+
+
+@pytest.fixture(scope="module")
+def reordered(tmp_path_factory):
+    """An IVF16,PQ16 index built by the JAX `clip_index` over 600 clustered
+    rows, in two copies: one prepared for reordered serving by the JAX
+    package's `load_clip_indices`, one by the port's."""
+    import shutil
+
+    root = tmp_path_factory.mktemp("reorder")
+    emb = root / "emb"
+    (emb / "img_emb").mkdir(parents=True)
+    (emb / "metadata").mkdir(parents=True)
+    rng = np.random.default_rng(1)
+    n = 600
+    centers = _unit(rng.normal(size=(8, D)))
+    x = _unit(centers[rng.integers(0, 8, n)] + 0.2 * rng.normal(size=(n, D)))
+    np.save(emb / "img_emb" / "img_emb_0.npy", x.astype(np.float16))
+    pd.DataFrame({"caption": [f"cap {i}" for i in range(n)],
+                  "url": [f"http://x/{i}" for i in range(n)]}).to_parquet(emb / "metadata" / "metadata_0.parquet")
+    clip_index(str(emb), str(root / "built"), index_key="IVF16,PQ16", nprobe=16, compute_recall=False)
+    common = dict(clip_model="test-tiny", columns_to_return=["caption", "url"], enable_hdf5=True,
+                  reorder_metadata_by_ivf_index=True, provide_aesthetic_embeddings=False)
+    out = {"x": x, "root": root}
+    for name in ("jax", "torch"):
+        shutil.copytree(root / "built", root / name)
+        (root / f"{name}.json").write_text(json.dumps({"r": str(root / name)}))
+    # each package prepares its own copy, then serves the other's
+    out["apps"] = {
+        ("jax", "jax"): jax_make_app(jax_load(str(root / "jax.json"), JaxClipOptions(**common))),
+        ("torch", "torch"): torch_make_app(torch_load(str(root / "torch.json"), TorchClipOptions(**common,
+                                                                                                 device="cpu")),
+                                           device="cpu"),
+    }
+    out["apps"][("torch", "jax")] = torch_make_app(torch_load(str(root / "jax.json"), TorchClipOptions(
+        **common, device="cpu")), device="cpu")
+    out["apps"][("jax", "torch")] = jax_make_app(jax_load(str(root / "torch.json"), JaxClipOptions(**common)))
+    out["resources"] = torch_load(str(root / "torch.json"), TorchClipOptions(**common, device="cpu"))["r"]
+    return out
+
+
+def test_reordered_artifacts_are_byte_equal(reordered):
+    res = reordered["resources"]
+    assert res.metadata_is_ordered_by_ivf
+    m = np.asarray(res.ivf_old_to_new_mapping)
+    np.testing.assert_array_equal(np.sort(m), np.arange(len(m)))
+    for artifact in ("ivf_old_to_new_mapping.npy", "metadata_reordered.hdf5"):
+        assert (reordered["root"] / "torch" / artifact).read_bytes() == \
+            (reordered["root"] / "jax" / artifact).read_bytes(), artifact
+
+
+@pytest.mark.parametrize("row", [123, 7, 450])
+def test_reordered_folders_serve_alike_in_both_packages(reordered, row):
+    """(serving package, preparing package): every pair answers with the same
+    ids and the same metadata per result, and the metadata is the original
+    row's."""
+    body = {"embedding_input": reordered["x"][row].tolist(), "modality": "image", "num_images": 5,
+            "indice_name": "r"}
+    answers = {}
+    for key, app in reordered["apps"].items():
+        r = request(app, "POST", "/knn-service", body)
+        assert r["status"].startswith("200"), (key, r["body"])
+        answers[key] = r["json"]
+    want = answers[("jax", "jax")]
+    for key, got in answers.items():
+        assert [a["id"] for a in got] == [w["id"] for w in want], key
+        assert [(a["caption"], a["url"]) for a in got] == [(w["caption"], w["url"]) for w in want], key
+        np.testing.assert_allclose([a["similarity"] for a in got], [w["similarity"] for w in want], atol=1e-5)
+    assert f"cap {row}" in [a["caption"] for a in want]  # under PQ distortion the row ranks within the top few
+
+
+def test_reordered_dynamic_nprobe_is_restored(reordered):
+    res = reordered["resources"]
+    app = torch_make_app({"r": res}, device="cpu")
+    before = res.image_index.nprobe
+    r = request(app, "POST", "/knn-service", {"embedding_input": reordered["x"][0].tolist(), "modality": "image",
+                                              "num_images": 3, "num_result_ids": 150000, "indice_name": "r"})
+    assert r["status"].startswith("200")
+    assert res.image_index.nprobe == before
