@@ -5,7 +5,8 @@ Run from the root of a checkout: `python3 chip_smoke.py`.  It builds every
 CUDA kernel of the port from `clip_retrieval_tpu_torch/csrc/` (one nvcc per
 source, in parallel) and the host C++ ADC scanner, checks each kernel against
 its plain PyTorch version on the card, and drives the port's paths at
-ViT-L/14 (full width, random weights from `init_clip`):
+ViT-L/14 (full width, random weights from `init_clip`) and at the other
+model families' published widths:
 
 - embedding inference: the `inference` entry point, bf16, batch 256, image
   and text towers; the embeddings are checked, the bf16 kernel path is
@@ -44,14 +45,29 @@ ViT-L/14 (full width, random weights from `init_clip`):
 - the entry points on ported code: `clip_end2end` over the 512 samples
   (inference, index, an in-process `back` app), `clip_filter` on its index
   (threshold and image-file queries) and on pq1m, and `ClipClient` against
-  the running `back`, compared with raw HTTP.
+  the running `back`, compared with raw HTTP;
+- the other model families: K1 at the ResNet CLIPs' causal text shapes (8,
+  10 and 16 heads x 64, S 77); `inference` over the 512 samples at RN50
+  bf16 b256 (K1 in the text tower only: 24 launches); RN50 and RN50x64
+  (448 px, a 36-block stage, a 4096-d attention pool) bf16 against their f32
+  plain path, their image embeddings/s and a `torch.profiler` breakdown of
+  RN50's image tower; `convert` of an openai-layout RN50 state dict (random
+  convolutions and BatchNorm statistics) validated on the card, its folded
+  stem conv held to conv -> BatchNorm and its bf16 embeddings to its f32
+  ones; an M-CLIP text tower at XLM-R Large's published width (vocab
+  250,002, hidden 1,024, 24 layers, random weights, a 1024 -> 768
+  projection) written as a checkpoint directory, loaded by `load_mclip`,
+  timed at 1 and 32 texts, run by the mapper with `use_mclip` over the 512
+  captions, and answering `/knn-service` text queries with `use_mclip` on
+  the merged IVF-int8 index with a direct search's ids (K3, no K1).
 
 Phases, each of which stops the script with a non-zero exit when it fails:
 device, build, K1 vs plain, K3 vs plain, K2 vs plain, K4 vs plain, main
-path, tower parity, times, sdpa path, index build, combine IVF-int8 build,
+path, tower parity, times, sdpa path, K1 at the ResNet text shapes, RN50
+main path, RN tower parity, convert, index build, combine IVF-int8 build,
 index, served path, recall, query times, IVF-PQ checks, combine IVF-PQ,
-combine IVF-int8, arrow, end2end, filter, client.  Kernel launch counts are
-set to 0 just before each path and read just after it.  The line before the
+combine IVF-int8, arrow, end2end, filter, client, mclip.  Kernel launch
+counts are set to 0 just before each path and read just after it.  The line before the
 last is a JSON object describing each kernel; the last line is `{"ok":
 true, "device": {...}}`.  Without a CUDA device, or without the package
 beside it, the script exits non-zero and prints no result.
@@ -80,10 +96,12 @@ BATCH = 256
 SAMPLES = 512
 MODEL = "ViT-L/14"
 # (heads, dh, S, causal): every attention geometry of the supported towers
+# (the ResNet CLIPs' text towers: 8 heads for RN50/RN101, 10 for RN50x4, 12 for RN50x16, 16 for RN50x64)
 GEOMETRIES = [(12, 64, 50, False), (16, 64, 257, False), (16, 80, 257, False), (16, 88, 257, False),
-              (16, 64, 577, False), (12, 64, 77, True)]
+              (16, 64, 577, False), (12, 64, 77, True), (8, 64, 77, True), (10, 64, 77, True), (16, 64, 77, True)]
 # ragged edges of the 16-row / 16-key tiling, B=3: (heads, dh, S); dh 20 takes the non-vectorised route
-EDGE_GEOMETRIES = [(12, 64, s) for s in (1, 16, 17, 65, 129)] + [(16, 88, 17), (16, 88, 129), (3, 20, 65)]
+EDGE_GEOMETRIES = ([(12, 64, s) for s in (1, 16, 17, 65, 129)] + [(8, 64, s) for s in (1, 17, 77, 129)]
+                   + [(16, 88, 17), (16, 88, 129), (3, 20, 65)])
 # K2 with Sq != Sk at the edges: (heads, dh, Sq, Sk)
 EDGE_SQ_SK = [(12, 64, 1, 257), (12, 64, 257, 1), (12, 64, 77, 257)]
 BF16_MAX_ABS, BF16_MIN_COS, F32_MAX_ABS = 2e-2, 0.9999, 1e-4
@@ -105,6 +123,17 @@ PQ_MIN_RECALL, PQ_MIN_OVERLAP, PQ_SCORE_TOL = 0.90, 0.99, 1e-4
 K4_MS, K4_BS = (8, 16, 64, 96, 192, 256), (1, 3, 32, 128)
 # slice 4: shard builds merged by `index_combiner`; the IVF-int8 index built over the pq1m corpus, served third
 COMBINE_SHARDS, INT8_NLIST, INT8_INDEX = 4, 1024, "int8combined1m"
+# slice 5: the ResNet towers (RN50x64 is the widest published one: 448 px, a 36-block stage, a 4096-d
+# attention pool) and the M-CLIP text tower at XLM-R Large's published width, as multilingual_clip's
+# M-CLIP/XLM-Roberta-Large-Vit-L-14 uses it, projected into ViT-L/14's 768-d space
+RN_MODEL, RN_WIDE, RN_WIDE_BATCH = "RN50", "RN50x64", 64
+RN_BN3_SCALE = 0.25  # the residual branches' folded bn3 weight in the parity check (see phase_rn_towers)
+MCLIP_CONFIG = {"model_type": "xlm-roberta", "architectures": ["XLMRobertaModel"], "vocab_size": 250002,
+                "hidden_size": 1024, "num_hidden_layers": 24, "num_attention_heads": 16, "intermediate_size": 4096,
+                "max_position_embeddings": 514, "type_vocab_size": 1, "pad_token_id": 1, "bos_token_id": 0,
+                "eos_token_id": 2, "layer_norm_eps": 1e-5, "hidden_act": "gelu"}
+MCLIP_QUERIES = ["une photo d'un chat sur un canapé", "ein Foto von einem Hund im Schnee",
+                 "a photo of sample number 7, seed 42", "una foto de la playa al atardecer", "猫の写真"]
 # the card's published peaks (H100 SXM data sheet): HBM bytes/s, dense bf16 FLOP/s, SMs
 HBM_BPS, BF16_FLOPS, SMS = 3.35e12, 989e12, 132
 
@@ -427,14 +456,11 @@ def phase_parity(mapper, gpu: str):
 
 def phase_times(flash, mapper, gpu: str) -> tuple[tuple[float, float, float], tuple[float, float, float], float]:
     """Mapper samples/s on device-resident inputs, and K1 against its plain
-    version at the main path's two attention shapes in bf16: checked against
-    the plain version's output with the bars of phase_kernels, then timed
-    beside `F.scaled_dot_product_attention` (not on the path).  Returns
-    ((K1 ms, plain ms, SDPA ms) at the image tower's (256, 257, 16x64), the
-    same at the text tower's (256, 77, 12x64, causal), the worst max abs error
-    of the two checks)."""
+    version at the main path's two attention shapes in bf16 (`time_k1`).
+    Returns ((K1 ms, plain ms, SDPA ms) at the image tower's (256, 257,
+    16x64), the same at the text tower's (256, 77, 12x64, causal), the worst
+    max abs error of the two checks)."""
     import torch
-    import torch.nn.functional as F
 
     from clip_retrieval_tpu_torch.inference.staging import STAGED_KEY
 
@@ -467,32 +493,41 @@ def phase_times(flash, mapper, gpu: str) -> tuple[tuple[float, float, float], tu
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
-    results, worst = [], 0.0
     # the two attention shapes of the main path: image tower, then causal text tower
-    for s, heads, dh, causal in ((257, 16, 64, False), (77, 12, 64, True)):
-        q, k, v = (torch.randn(BATCH, s, heads * dh, generator=gen, device="cuda").to(torch.bfloat16)
-                   for _ in range(3))
-        worst = max(worst, check_k1(flash, q, k, v, heads, causal))
-        kern = lambda: flash.flash_attention_packed(q, k, v, heads, causal=causal)
-        plain = lambda: flash.flash_attention_packed_reference(q, k, v, heads, causal=causal)
-        split = lambda x: x.view(BATCH, s, heads, dh).transpose(1, 2).contiguous()
-        qs, ks, vs = split(q), split(k), split(v)
-        sdpa = lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
-        for fn in (kern, plain, sdpa):  # warm up; SDPA's first calls pick and build a backend
-            for _ in range(3):
-                fn()
-        times: dict[str, list[float]] = {"K1": [], "plain": []}
-        for name, fn in (("plain", plain), ("K1", kern), ("K1", kern), ("plain", plain)):
-            times[name].append(cuda_ms(fn, 20))
-        k1_ms, plain_ms = float(np.mean(times["K1"])), float(np.mean(times["plain"]))
-        sdpa_ms = cuda_ms(sdpa, 20)
-        bound, by = attention_bound_ms(BATCH, heads, s, s, dh, 2)
-        print(f"  [{gpu}] K1 ({BATCH}, {s}, {heads}x{dh}{', causal' if causal else ''}) bf16: {k1_ms:.4f} ms/call "
-              f"(runs {times['K1']}); plain version {plain_ms:.4f} ms/call (runs {times['plain']}); yardstick "
-              f"F.scaled_dot_product_attention on (B,H,S,dh) {sdpa_ms:.4f} ms/call (not on the path); bound "
-              f"{bound:.4f} ms ({by})")
-        results.append((k1_ms, plain_ms, sdpa_ms))
-    return results[0], results[1], worst
+    image = time_k1(flash, gen, 257, 16, 64, False, gpu)
+    text = time_k1(flash, gen, 77, 12, 64, True, gpu)
+    return image[:3], text[:3], max(image[3], text[3])
+
+
+def time_k1(flash, gen, s: int, heads: int, dh: int, causal: bool, gpu: str) -> tuple[float, float, float, float]:
+    """K1 at (BATCH, s, heads x dh) bf16: checked against its plain version
+    with the bars of phase_kernels, then timed beside it and
+    `F.scaled_dot_product_attention` (not on the path).  Returns (K1 ms,
+    plain ms, SDPA ms, max abs error)."""
+    import torch
+    import torch.nn.functional as F
+
+    q, k, v = (torch.randn(BATCH, s, heads * dh, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(3))
+    err = check_k1(flash, q, k, v, heads, causal)
+    kern = lambda: flash.flash_attention_packed(q, k, v, heads, causal=causal)
+    plain = lambda: flash.flash_attention_packed_reference(q, k, v, heads, causal=causal)
+    split = lambda x: x.view(BATCH, s, heads, dh).transpose(1, 2).contiguous()
+    qs, ks, vs = split(q), split(k), split(v)
+    sdpa = lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
+    for fn in (kern, plain, sdpa):  # warm up; SDPA's first calls pick and build a backend
+        for _ in range(3):
+            fn()
+    times: dict[str, list[float]] = {"K1": [], "plain": []}
+    for name, fn in (("plain", plain), ("K1", kern), ("K1", kern), ("plain", plain)):
+        times[name].append(cuda_ms(fn, 20))
+    k1_ms, plain_ms = float(np.mean(times["K1"])), float(np.mean(times["plain"]))
+    sdpa_ms = cuda_ms(sdpa, 20)
+    bound, by = attention_bound_ms(BATCH, heads, s, s, dh, 2)
+    print(f"  [{gpu}] K1 ({BATCH}, {s}, {heads}x{dh}{', causal' if causal else ''}) bf16: {k1_ms:.4f} ms/call "
+          f"(runs {times['K1']}); plain version {plain_ms:.4f} ms/call (runs {times['plain']}); yardstick "
+          f"F.scaled_dot_product_attention on (B,H,S,dh) {sdpa_ms:.4f} ms/call (not on the path); bound "
+          f"{bound:.4f} ms ({by})")
+    return k1_ms, plain_ms, sdpa_ms, err
 
 
 def attention_bound_ms(b: int, h: int, sq: int, sk: int, dh: int, itemsize: int) -> tuple[float, str]:
@@ -551,6 +586,187 @@ def phase_sdpa(flash, kernels: dict, gpu: str) -> tuple[dict, float, float, floa
           f"{err:.3e}; K2 {k2_ms:.4f} ms/call (runs {times['K2']}); plain version {plain_ms:.4f} ms/call (runs "
           f"{times['plain']}); F.scaled_dot_product_attention {lib_ms:.4f} ms/call; bound {bound:.4f} ms ({by})")
     return counts, k2_ms, plain_ms, lib_ms, err
+
+
+# --------------------------------------------------------------------------
+# slice 5: the ResNet towers, checkpoint conversion, M-CLIP
+# --------------------------------------------------------------------------
+
+
+def staged_images(n: int, size: int, seed: int) -> dict:
+    """A device-resident uint8 batch as `DeviceStagingReader` hands it over."""
+    import torch
+
+    from clip_retrieval_tpu_torch.inference.staging import STAGED_KEY
+
+    rng = np.random.default_rng(seed)
+    return {"image_tensor": torch.from_numpy(rng.integers(0, 256, (n, size, size, 3), dtype=np.uint8)).cuda(),
+            "image_filename": [str(i) for i in range(n)], STAGED_KEY: n}
+
+
+def images_per_s(mapper, batch: dict, iters: int) -> tuple[float, float]:
+    """Image embeddings/s of the mapper on a device-resident batch (host
+    clock; each call reads the fp16 embeddings back), and the peak device
+    memory of those calls in GB."""
+    import torch
+
+    mapper.enable_image, mapper.enable_text = True, False
+    for _ in range(2):
+        mapper(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        mapper(batch)
+    rate = iters * batch["image_tensor"].shape[0] / (time.perf_counter() - t0)
+    return rate, torch.cuda.max_memory_allocated() / 1e9
+
+
+def rn_parity(model, tokenizer, cfg, gpu: str, weights: str, bar: bool = True, n: int = 8):
+    """A ResNet CLIP's bf16 path against its f32 plain path on the same
+    weights: the image tower in bf16 against f32 on the card (it holds no
+    kernel of the port; cuDNN with TF32 off), the text tower in bf16 through
+    K1 against f32 on the CPU, where the wrapper runs K1's plain version.
+    Fails below TOWER_MIN_COS when `bar`; otherwise only reports."""
+    import torch
+
+    from clip_retrieval_tpu_torch.models.clip import encode_image, encode_text
+
+    rng = np.random.default_rng(4)
+    images = torch.from_numpy(rng.integers(0, 256, (n, cfg.image_size, cfg.image_size, 3), dtype=np.uint8)).cuda()
+    tokens = torch.from_numpy(tokenizer([f"caption {i} for the {cfg.name} parity check" for i in range(n)],
+                                        cfg.context_length))
+    with torch.inference_mode():
+        img_bf16 = encode_image(model, images, compute_dtype=torch.bfloat16)
+        img_f32 = encode_image(model, images, compute_dtype=torch.float32)
+        txt_bf16 = encode_text(model, tokens.cuda(), compute_dtype=torch.bfloat16).cpu()
+    model.text.to("cpu")  # in place; moved back below
+    try:
+        with torch.inference_mode():
+            txt_ref = encode_text(model, tokens)
+    finally:
+        model.text.to("cuda")
+    finite = bool(torch.isfinite(img_bf16).all() and torch.isfinite(txt_bf16).all())
+    cos_img, cos_txt = min_row_cos(img_bf16, img_f32), min_row_cos(txt_bf16, txt_ref)
+    print(f"  [{gpu}] {cfg.name} ({weights}) bf16 path vs f32 plain path, {n} images and captions: image "
+          f"min_cos={cos_img:.6f} (f32 on the card, TF32 off), text min_cos={cos_txt:.6f} (f32 plain K1 on the CPU), "
+          f"finite={finite}" + ("" if bar else "; reported, not held to the bar"))
+    check(finite and img_bf16.shape == (n, cfg.embed_dim), f"{cfg.name} image embeddings {tuple(img_bf16.shape)}")
+    check(not bar or (cos_img >= TOWER_MIN_COS and cos_txt >= TOWER_MIN_COS),
+          f"{cfg.name} tower parity below {TOWER_MIN_COS}")
+
+
+def phase_rn_main_path(kernels: dict, gpu: str) -> dict:
+    """The `inference` entry point over the 512 JPEG+caption samples at RN50
+    bf16 b256, image and text: K1 runs in the text tower only (2 batches x 12
+    layers).  Returns the launch counts."""
+    from clip_retrieval_tpu_torch.inference.main import main as clip_inference
+    from clip_retrieval_tpu_torch.models.configs import get_config
+
+    cfg = get_config(RN_MODEL)
+    out = f"{WORK_DIR}/out_rn50"
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    clip_inference(input_dataset=f"{WORK_DIR}/corpus", output_folder=out, batch_size=BATCH, num_prepro_workers=8,
+                   clip_model=RN_MODEL, device="cuda")
+    wall = time.perf_counter() - t0
+    counts = read_counts(kernels)
+    for sub, name in (("img_emb", "img_emb_0.npy"), ("text_emb", "text_emb_0.npy")):
+        emb = np.load(f"{out}/{sub}/{name}")
+        norms = np.linalg.norm(emb.astype(np.float32), axis=-1)
+        print(f"  {RN_MODEL} {sub}: shape={emb.shape} dtype={emb.dtype} norm range [{norms.min():.5f}, "
+              f"{norms.max():.5f}]")
+        check(emb.shape == (SAMPLES, cfg.embed_dim) and emb.dtype == np.float16, f"{sub} has shape {emb.shape}")
+        check(bool(np.isfinite(emb).all()), f"{RN_MODEL} {sub} has non-finite values")
+        check(bool(np.all(np.abs(norms - 1) <= 1e-2)), f"{RN_MODEL} {sub} norms leave 1 ± 1e-2")
+    expected = 2 * cfg.text_layers  # 2 batches x text layers; the image tower launches no kernel of the port
+    print(f"  [{gpu}] {RN_MODEL} main path wall {wall:.2f} s on the host clock, 2 batches, including model init and "
+          f"JPEG decode; launches {counts}")
+    check(counts["k1"] == expected, f"K1 launched {counts['k1']} times on the {RN_MODEL} path, expected {expected}")
+    check(counts["k2"] == counts["k3"] == counts["k4"] == 0, f"another kernel launched on the {RN_MODEL} path")
+    return counts
+
+
+def rn_profile(mapper, batch: dict, gpu: str) -> dict:
+    """Device time of RN50's image tower over 3 device-resident batches by
+    `torch.profiler`, grouped by operator: convolutions, the folded-BN/relu
+    epilogues with the casts, pooling, the attention pool.  Returns
+    {group: share of the device time}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    mapper(batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            mapper(batch)
+        torch.cuda.synchronize()
+    groups = {"convolutions": ("conv",), "pooling": ("avg_pool",),
+              "attention pool (matmuls, softmax, mean, concat)": ("mm", "matmul", "softmax", "mean", "cat", "einsum"),
+              "epilogues and casts (mul, add, relu, copy)": ("mul", "add", "relu", "clamp", "copy", "to", "div",
+                                                             "sub")}
+    totals = dict.fromkeys([*groups, "other"], 0.0)
+    rows = []
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total", None)
+        t = ev.self_cuda_time_total if t is None else t
+        if not ev.key.startswith("aten::") or t <= 0:
+            continue  # kernel rows repeat their op's time; sum the op rows only
+        op = ev.key[len("aten::"):]
+        group = next((g for g, keys in groups.items() if any(k in op for k in keys)), "other")
+        totals[group] += t
+        rows.append((t, ev.key, ev.count))
+    total = sum(totals.values())
+    check(total > 0, "torch.profiler reported no device time for the RN50 image tower")
+    for t, key, count in sorted(rows, reverse=True)[:12]:
+        print(f"    {key:<40} {t / 1e3 / 3:9.3f} ms/batch {100 * t / total:6.2f} %  ({count} calls)")
+    shares = {g: t / total for g, t in totals.items()}
+    print(f"  [{gpu}] {RN_MODEL} image tower b{BATCH} bf16 device time {total / 1e3 / 3:.3f} ms/batch (torch.profiler, "
+          f"3 batches): " + ", ".join(f"{g} {100 * v:.2f} %" for g, v in shares.items()))
+    return shares
+
+
+def phase_rn_towers(gpu: str):
+    """RN50 and RN50x64 (random weights from `init_clip`, full width): the
+    bf16 path against the f32 plain path (`rn_parity`), reported on
+    `init_clip`'s weights and held to the bar once every bottleneck's conv3
+    scale (its folded bn3 weight) is RN_BN3_SCALE; image embeddings/s of the
+    mapper on device-resident batches (RN50 at b256, RN50x64 at b64); a
+    `torch.profiler` breakdown of RN50's image tower.
+
+    Why the scale: `init_clip` gives every folded BN scale 1 (the JAX
+    package's init), so the residual stream grows through RN50x64's 64
+    blocks, the attention pool's logits grow with it, and its softmax turns
+    bf16's rounding of the features into a different embedding, in the JAX
+    package's forward as in this one.  openai's CLIP initialises every bn3
+    weight to 0 (model.py, `initialize_parameters`), so a checkpoint's
+    residual branches start at nothing; at 0.25 the stream stays small."""
+    import torch
+
+    from clip_retrieval_tpu_torch.inference.mapper import ClipMapper
+
+    rates = {}
+    for name, batch_size in ((RN_MODEL, BATCH), (RN_WIDE, RN_WIDE_BATCH)):
+        mapper = ClipMapper(enable_image=True, enable_text=False, clip_model=name, batch_size=batch_size,
+                            device="cuda")
+        cfg = mapper.bundle.cfg
+        rn_parity(mapper.model, mapper.bundle.tokenize, cfg, gpu, "init_clip's weights", bar=False)
+        with torch.no_grad():
+            for stage in mapper.model.visual.stages:
+                for blk in (stage.head, *stage.tail):
+                    blk.conv3.scale.fill_(RN_BN3_SCALE)
+        rn_parity(mapper.model, mapper.bundle.tokenize, cfg, gpu, f"init_clip's weights, conv3 scale {RN_BN3_SCALE}")
+        batch = staged_images(batch_size, cfg.image_size, 5)
+        rates[name], peak_gb = images_per_s(mapper, batch, 10)
+        n_params = sum(p.numel() for p in mapper.model.visual.parameters())
+        print(f"  [{gpu}] mapper {name} image tower ({n_params / 1e6:.1f}M parameters, {cfg.image_size} px) bf16 "
+              f"b{batch_size}: {rates[name]:.1f} img/s (10 batches, device-resident inputs), peak device memory "
+              f"{peak_gb:.1f} GB")
+        if name == RN_MODEL:
+            shares = rn_profile(mapper, batch, gpu)
+        del mapper, batch
+        torch.cuda.empty_cache()
+    return rates, shares
 
 
 # --------------------------------------------------------------------------
@@ -1562,6 +1778,306 @@ def phase_client(port: int, originals, gpu: str):
           f"({TOPK} results each)")
 
 
+def openai_rn_state_dict(cfg, seed: int) -> dict:
+    """A whole openai-layout ModifiedResNet CLIP state dict at `cfg`'s full
+    width on the CPU: random conv and linear weights, BatchNorms with random
+    weight, bias, running mean and running variance (a fold that ignored one
+    would show), an openai text tower (fused in_proj)."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    randn = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")  # noqa: E731
+    sd = {}
+
+    def conv_bn(conv: str, bn: str, cout: int, cin: int, k: int):
+        sd[conv + ".weight"] = randn(cout, cin, k, k) * (k * k * cin) ** -0.5
+        sd[bn + ".weight"] = 1 + 0.2 * randn(cout)
+        sd[bn + ".bias"] = 0.2 * randn(cout)
+        sd[bn + ".running_mean"] = 0.1 + 0.2 * randn(cout)
+        sd[bn + ".running_var"] = 0.5 + torch.rand(cout, generator=gen, device="cuda")
+        sd[bn + ".num_batches_tracked"] = torch.tensor(0)
+
+    w = cfg.vision_width
+    conv_bn("visual.conv1", "visual.bn1", w // 2, 3, 3)
+    conv_bn("visual.conv2", "visual.bn2", w // 2, w // 2, 3)
+    conv_bn("visual.conv3", "visual.bn3", w, w // 2, 3)
+    cin = w
+    for si, n_blocks in enumerate(cfg.resnet_layers):
+        planes = w * 2 ** si
+        for b in range(n_blocks):
+            p = f"visual.layer{si + 1}.{b}."
+            conv_bn(p + "conv1", p + "bn1", planes, cin, 1)
+            conv_bn(p + "conv2", p + "bn2", planes, planes, 3)
+            conv_bn(p + "conv3", p + "bn3", planes * 4, planes, 1)
+            if b == 0:
+                conv_bn(p + "downsample.0", p + "downsample.1", planes * 4, cin, 1)
+            cin = planes * 4
+    c, ap = cfg.attnpool_dim, "visual.attnpool."
+    sd[ap + "positional_embedding"] = randn(cfg.grid_size ** 2 + 1, c) * c ** -0.5
+    for proj, out in (("q_proj", c), ("k_proj", c), ("v_proj", c), ("c_proj", cfg.embed_dim)):
+        sd[ap + proj + ".weight"] = randn(out, c) * c ** -0.5
+        sd[ap + proj + ".bias"] = 0.02 * randn(out)
+    tw = cfg.text_width
+    sd["token_embedding.weight"] = 0.02 * randn(cfg.vocab_size, tw)
+    sd["positional_embedding"] = 0.01 * randn(cfg.context_length, tw)
+    for i in range(cfg.text_layers):
+        p = f"transformer.resblocks.{i}."
+        for key, rows, cols in ((p + "attn.in_proj_weight", 3 * tw, tw), (p + "attn.out_proj.weight", tw, tw),
+                                (p + "mlp.c_fc.weight", 4 * tw, tw), (p + "mlp.c_proj.weight", tw, 4 * tw)):
+            sd[key] = randn(rows, cols) * cols ** -0.5  # fan-in scale
+            sd[key.replace("weight", "bias")] = torch.zeros(rows, device="cuda")
+        for ln in ("ln_1", "ln_2"):
+            sd[p + ln + ".weight"], sd[p + ln + ".bias"] = torch.ones(tw), torch.zeros(tw)
+    sd["ln_final.weight"], sd["ln_final.bias"] = torch.ones(tw), torch.zeros(tw)
+    sd["text_projection"] = randn(tw, cfg.embed_dim) * tw ** -0.5
+    sd["logit_scale"] = torch.tensor(float(np.log(1 / 0.07)))
+    return {k: v.cpu() for k, v in sd.items()}
+
+
+def phase_convert(kernels: dict, gpu: str) -> dict:
+    """`convert` on an openai-layout RN50 state dict (.pt) with validation on
+    the card; the npz loaded by `load_checkpoint`: its folded stem conv
+    against conv → BatchNorm on the card (f32), and its bf16 image and text
+    embeddings against its f32 plain ones (`rn_parity`).  Returns the launch
+    counts."""
+    import torch
+    import torch.nn.functional as F
+
+    from clip_retrieval_tpu_torch.models.configs import get_config
+    from clip_retrieval_tpu_torch.models.convert import convert
+    from clip_retrieval_tpu_torch.models.loaders import load_checkpoint
+    from clip_retrieval_tpu_torch.models.tokenizer import CLIPTokenizer
+
+    cfg = get_config(RN_MODEL)
+    sd = openai_rn_state_dict(cfg, 12)
+    pt, npz = os.path.join(WORK_DIR, "rn50_openai.pt"), os.path.join(WORK_DIR, "rn50_openai.npz")
+    torch.save(sd, pt)
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    check(convert(pt, npz, clip_model=RN_MODEL, device="cuda") == npz, "convert wrote another file")
+    t_convert = time.perf_counter() - t0
+    model, _ = load_checkpoint(npz, cfg, device="cuda")
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal((4, cfg.image_size, cfg.image_size, 3),
+                                                                    dtype=np.float32)).cuda()
+    bn = {k: sd[f"visual.bn1.{k}"].cuda() for k in ("weight", "bias", "running_mean", "running_var")}
+    with torch.inference_mode():
+        ref = F.batch_norm(F.conv2d(x.permute(0, 3, 1, 2), sd["visual.conv1.weight"].cuda(), stride=2, padding=1),
+                           bn["running_mean"], bn["running_var"], bn["weight"], bn["bias"], eps=1e-5)
+        got = model.visual.stem.conv1(x, stride=2, relu=False).permute(0, 3, 1, 2)
+    fold_err = (got - ref).abs().max().item()
+    print(f"  [{gpu}] convert of an openai-layout {RN_MODEL} state dict ({len(sd)} tensors, "
+          f"{os.path.getsize(pt) / 1e6:.1f} MB) to npz and its validation on the card: {t_convert:.2f} s; folded stem "
+          f"conv vs conv -> BatchNorm (f32): max abs {fold_err:.3e} (max |ref| {ref.abs().max().item():.3f})")
+    check(fold_err <= 1e-4, f"the folded stem conv is off by {fold_err:.3e}")
+    rn_parity(model, CLIPTokenizer.byte_fallback(), cfg, gpu, "the converted checkpoint")
+    counts = read_counts(kernels)
+    check(counts["k1"] == cfg.text_layers and counts["k3"] == counts["k4"] == 0,
+          f"convert path launches {counts}, expected K1 {cfg.text_layers} (one bf16 text batch)")
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+class ByteTokenizer:
+    """Stand-in for a `tokenizers.Tokenizer` where that package is missing:
+    `.encode(text).ids` maps the UTF-8 bytes into the vocab between <s> = 0
+    and </s> = 2."""
+
+    class Encoding:
+        def __init__(self, ids):
+            self.ids = ids
+
+    def encode(self, text: str):
+        return self.Encoding([0] + [4 + b for b in text.encode("utf-8")] + [2])
+
+
+def write_mclip_dir(folder: str, with_tokenizer: bool):
+    """An M-CLIP checkpoint directory at XLM-R Large's published width
+    (M-CLIP/XLM-Roberta-Large-Vit-L-14's text encoder) with random weights:
+    config.json, pytorch_model.bin under HF XLMRobertaModel key names, and a
+    sentence-transformers 2_Dense projection 1024 -> 768 (ViT-L/14's space);
+    with `with_tokenizer`, a word-level tokenizer.json over the captions'
+    words and digits."""
+    import torch
+
+    c = MCLIP_CONFIG
+    h, f = c["hidden_size"], c["intermediate_size"]
+    os.makedirs(os.path.join(folder, "2_Dense"))
+    with open(os.path.join(folder, "config.json"), "w") as fp:
+        json.dump(c, fp)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    randn = lambda *shape: (0.02 * torch.randn(*shape, generator=gen, device="cuda")).cpu()  # noqa: E731
+    e = "embeddings."
+    sd = {e + "word_embeddings.weight": randn(c["vocab_size"], h),
+          e + "position_embeddings.weight": randn(c["max_position_embeddings"], h),
+          e + "token_type_embeddings.weight": randn(c["type_vocab_size"], h),
+          e + "LayerNorm.weight": torch.ones(h), e + "LayerNorm.bias": torch.zeros(h)}
+    for i in range(c["num_hidden_layers"]):
+        p = f"encoder.layer.{i}."
+        for name, shape in (("attention.self.query", (h, h)), ("attention.self.key", (h, h)),
+                            ("attention.self.value", (h, h)), ("attention.output.dense", (h, h)),
+                            ("intermediate.dense", (f, h)), ("output.dense", (h, f))):
+            sd[p + name + ".weight"], sd[p + name + ".bias"] = randn(*shape), torch.zeros(shape[0])
+        for ln in ("attention.output.LayerNorm", "output.LayerNorm"):
+            sd[p + ln + ".weight"], sd[p + ln + ".bias"] = torch.ones(h), torch.zeros(h)
+    torch.save(sd, os.path.join(folder, "pytorch_model.bin"))
+    proj = torch.randn(DIM, h, generator=gen, device="cuda") * h ** -0.5
+    torch.save({"linear.weight": proj.cpu(), "linear.bias": torch.zeros(DIM)},
+               os.path.join(folder, "2_Dense", "pytorch_model.bin"))
+    if with_tokenizer:
+        from tokenizers import Tokenizer, models, pre_tokenizers, processors
+
+        words = sorted({w for t in mclip_texts() for w in t.replace(",", " ").split() if not w.isdigit()})
+        vocab = {"<s>": 0, "<pad>": 1, "</s>": 2, "<unk>": 3, **{w: 4 + i for i, w in enumerate([*words, *"0123456789",
+                                                                                               ","])}}
+        tok = Tokenizer(models.WordLevel(vocab, unk_token="<unk>"))
+        tok.pre_tokenizer = pre_tokenizers.Sequence([pre_tokenizers.Whitespace(),
+                                                     pre_tokenizers.Digits(individual_digits=True)])
+        tok.post_processor = processors.TemplateProcessing(single="<s> $A </s>", special_tokens=[("<s>", 0),
+                                                                                               ("</s>", 2)])
+        tok.save(os.path.join(folder, "tokenizer.json"))
+    return sum(v.numel() for v in sd.values())
+
+
+def mclip_texts() -> list:
+    """The 512 captions of the corpus, in file order, and the queries."""
+    caps = []
+    for i in range(SAMPLES):
+        with open(f"{WORK_DIR}/corpus/{i:04d}.txt") as f:
+            caps.append(f.read())
+    return caps + MCLIP_QUERIES
+
+
+def phase_mclip(int8_folder: str, kernels: dict, gpu: str) -> dict:
+    """The M-CLIP text tower at XLM-R Large's width: `load_mclip` on the card
+    (timed, and held to the same model's f32 encode on the CPU), the encode
+    of 1 and 32 texts timed, the mapper with `use_mclip` over the 512
+    captions (text only; equal to the bundle's output), and `/knn-service`
+    text queries with `use_mclip: true` against the merged IVF-int8 index
+    through `make_app` in-process: 200 with num_images results, the ids of a
+    direct search with the bundle's embedding, K3 launched and K1 not.
+    Returns the launch counts of the mapper and the served queries."""
+    import torch
+
+    from clip_retrieval_tpu_torch.back.app import make_app
+    from clip_retrieval_tpu_torch.back.options import ClipOptions
+    from clip_retrieval_tpu_torch.back.resources import load_clip_indices
+    from clip_retrieval_tpu_torch.inference.mapper import ClipMapper
+    from clip_retrieval_tpu_torch.models.mclip import load_mclip
+
+    folder = os.path.join(WORK_DIR, "mclip")
+    has_tokenizers = importlib.util.find_spec("tokenizers") is not None
+    t0 = time.perf_counter()
+    n_params = write_mclip_dir(folder, with_tokenizer=has_tokenizers)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bundle = load_mclip(folder, device="cuda")
+    t_load = time.perf_counter() - t0
+    cfg = bundle.cfg
+    check((cfg.hidden, cfg.layers, cfg.heads, cfg.out_dim, cfg.position_offset) == (1024, 24, 16, DIM, 2),
+          f"load_mclip read {cfg}")
+
+    def tokenizer_for(b):
+        if not has_tokenizers:
+            b.tokenizer = ByteTokenizer()
+        check(b.tokenizer is not None, "load_mclip loaded no tokenizer from tokenizer.json")
+
+    tokenizer_for(bundle)
+    print(f"  [{gpu}] M-CLIP at XLM-R Large width ({n_params / 1e6:.1f}M encoder parameters, vocab {cfg.vocab_size}, "
+          f"hidden {cfg.hidden}, {cfg.layers} layers, {cfg.heads} heads, projection -> {cfg.out_dim}): written in "
+          f"{t_write:.1f} s, load_mclip {t_load:.1f} s; tokenizer: "
+          + ("tokenizer.json through the tokenizers package" if has_tokenizers else
+             "the tokenizers package is absent on this machine, so the bundle was given the smoke's stand-in byte "
+             "tokenizer (ids = UTF-8 bytes between <s> and </s>)"))
+    texts = mclip_texts()
+    caps, queries = texts[:SAMPLES], texts[SAMPLES:]
+    got = bundle(queries)
+    norms = np.linalg.norm(got.astype(np.float32), axis=-1)
+    check(got.shape == (len(queries), DIM) and bool(np.isfinite(got).all()) and bool(np.all(np.abs(norms - 1) < 1e-2)),
+          f"M-CLIP embeddings {got.shape}, norms {norms}")
+    # the card against the CPU, f32, same model and ids
+    encs = [bundle.tokenizer.encode(t).ids for t in queries]
+    ids = np.full((len(encs), max(map(len, encs))), cfg.pad_token_id, np.int64)
+    mask = np.zeros_like(ids)
+    for i, e in enumerate(encs):
+        ids[i, : len(e)], mask[i, : len(e)] = e, 1
+    with torch.inference_mode():
+        on_card = bundle.model.encode(torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda()).cpu()
+        bundle.model.to("cpu")
+        try:
+            on_cpu = bundle.model.encode(torch.from_numpy(ids), torch.from_numpy(mask))
+        finally:
+            bundle.model.to("cuda")
+    cos = min_row_cos(on_card, on_cpu)
+    check(cos >= 0.9999, f"M-CLIP on the card vs the CPU (f32): min cos {cos}")
+    ms = {}
+    for n in (1, 32):
+        batch = (caps * 2)[:n]
+        for _ in range(2):
+            bundle(batch)
+        t0 = time.perf_counter()
+        for _ in range(10):
+            bundle(batch)
+        ms[n] = 1e3 * (time.perf_counter() - t0) / 10
+    print(f"  [{gpu}] M-CLIP encode (f32, host clock incl. tokenizing and the fp16 read-back, 10 calls): 1 text "
+          f"{ms[1]:.2f} ms, 32 texts {ms[32]:.2f} ms; card vs CPU f32 min cos {cos:.7f}")
+
+    zero_counts(kernels)
+    mapper = ClipMapper(enable_image=False, enable_text=True, clip_model=MODEL, use_mclip=True, mclip_model=folder,
+                        batch_size=BATCH, device="cuda")
+    tokenizer_for(mapper.mclip)
+    t0 = time.perf_counter()
+    embs = [mapper({"text": caps[i : i + BATCH]})["text_embs"] for i in range(0, SAMPLES, BATCH)]
+    t_map = time.perf_counter() - t0
+    embs = np.concatenate(embs)
+    want = np.concatenate([bundle(caps[i : i + BATCH]) for i in range(0, SAMPLES, BATCH)])
+    diff = float(np.abs(embs.astype(np.float32) - want.astype(np.float32)).max())
+    check(embs.shape == (SAMPLES, DIM) and embs.dtype == np.float16 and diff <= 1e-3,
+          f"the mapper's M-CLIP embeddings {embs.shape} differ from the bundle's by {diff}")
+    mapper_counts = read_counts(kernels)
+    check(mapper_counts == {"k1": 0, "k2": 0, "k3": 0, "k4": 0}, f"the M-CLIP mapper launched {mapper_counts}")
+    print(f"  [{gpu}] mapper with use_mclip over {SAMPLES} captions (2 batches of {BATCH}, text only): "
+          f"{SAMPLES / t_map:.1f} captions/s, max abs vs the bundle {diff:.2e}; launches {mapper_counts}")
+    del mapper
+    torch.cuda.empty_cache()
+
+    paths = os.path.join(WORK_DIR, "mclip_paths.json")
+    with open(paths, "w") as f:
+        json.dump({INT8_INDEX: int8_folder}, f)
+    resources = load_clip_indices(paths, ClipOptions(
+        indice_folder="", clip_model=MODEL, enable_mclip_option=True, mclip_model=folder,
+        columns_to_return=["image_path", "caption"], provide_aesthetic_embeddings=False, device="cuda"))
+    res = resources[INT8_INDEX]
+    check(res.model_txt_mclip is not None, "back switched M-CLIP off (it failed to load)")
+    tokenizer_for(res.model_txt_mclip)
+    app = make_app(resources, device="cuda")
+    body = dict(use_mclip=True, num_images=TOPK, indice_name=INT8_INDEX, modality="image", deduplicate=False,
+                use_safety_model=False, use_violence_detector=False)
+    zero_counts(kernels)
+    served = []
+    t0 = time.perf_counter()
+    for q in queries:
+        status, out = wsgi_json(app, "POST", "/knn-service", {"text": q, **body})
+        check(status.startswith("200") and len(out) == TOPK, f"/knn-service use_mclip answered {status}: {out}")
+        served.append([r["id"] for r in out])
+    t_served = time.perf_counter() - t0
+    served_counts = read_counts(kernels)
+    check(served_counts["k3"] > 0 and served_counts["k1"] == 0, f"use_mclip queries launched {served_counts}")
+    for q, ids in zip(queries, served):
+        emb = res.model_txt_mclip(q).astype(np.float32)
+        emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+        check(ids == res.image_index.search(emb, TOPK)[1][0].tolist(),
+              f"served ids for {q!r} differ from a direct search with the bundle's embedding")
+    print(f"  [{gpu}] /knn-service with use_mclip on {INT8_INDEX}: {len(queries)} multilingual text queries in "
+          f"{t_served:.2f} s, {TOPK} results each, ids equal a direct search with the bundle's embedding; launches "
+          f"{served_counts}")
+    del app, resources, res, bundle
+    torch.cuda.empty_cache()
+    return add_counts(mapper_counts, served_counts)
+
+
 def run() -> int:
     import torch
 
@@ -1622,6 +2138,26 @@ def run() -> int:
 
         phase = "sdpa path"
         sdpa_counts, k2_ms, k2_plain_ms, k2_lib_ms, k2_err_path = phase_sdpa(flash, kernels, gpu)
+
+        phase = "K1 at the ResNet text shapes"
+        gen_rn = torch.Generator(device="cuda")
+        gen_rn.manual_seed(8)
+        k1_rn_text = {heads: time_k1(flash, gen_rn, 77, heads, 64, True, gpu) for heads in (8, 16)}
+
+        phase = "RN50 main path"
+        t0 = time.perf_counter()
+        rn_counts = phase_rn_main_path(kernels, gpu)
+        print(f"  phase 'RN50 main path' wall {time.perf_counter() - t0:.1f} s")
+
+        phase = "RN tower parity"
+        t0 = time.perf_counter()
+        rn_rates, rn_shares = phase_rn_towers(gpu)
+        print(f"  phase 'RN tower parity' wall {time.perf_counter() - t0:.1f} s")
+
+        phase = "convert"
+        t0 = time.perf_counter()
+        convert_counts = phase_convert(kernels, gpu)
+        print(f"  phase 'convert' wall {time.perf_counter() - t0:.1f} s")
 
         phase = "index build"
         corpus, pq_rows = phase_pq_corpus(gpu)
@@ -1684,9 +2220,15 @@ def run() -> int:
         phase_client(served_counts["port"], originals, gpu)
         print(f"  phase 'client' wall {time.perf_counter() - t0:.1f} s")
 
+        phase = "mclip"
+        t0 = time.perf_counter()
+        mclip_counts = phase_mclip(int8_folder, kernels, gpu)
+        print(f"  phase 'mclip' wall {time.perf_counter() - t0:.1f} s")
+
         phase = "kernels line"
         paths = {"inference": inference_counts, "index": index_counts, "serving": served_counts, "sdpa": sdpa_counts,
-                 "combine": combine_counts, "end2end": e2e_counts, "filter": filter_counts}
+                 "combine": combine_counts, "end2end": e2e_counts, "filter": filter_counts,
+                 "inference_rn50": rn_counts, "convert": convert_counts, "mclip": mclip_counts}
 
         def by_path(key: str) -> dict:
             return {name: counts[key] for name, counts in paths.items()}
@@ -1714,6 +2256,12 @@ def run() -> int:
         text_bound, _ = attention_bound_ms(BATCH, 12, 77, 77, 64, 2)
         line[0]["at_text_shape"] = {"shape": [BATCH, 77, 12, 64], "causal": True, "ms": k1_text[0],
                                     "plain_ms": k1_text[1], "library_ms": k1_text[2], "bound_ms": text_bound}
+        line[0]["at_rn_text_shapes"] = [
+            {"shape": [BATCH, 77, heads, 64], "causal": True, "ms": t[0], "plain_ms": t[1], "library_ms": t[2],
+             "max_abs_err": t[3], "bound_ms": attention_bound_ms(BATCH, heads, 77, 77, 64, 2)[0]}
+            for heads, t in k1_rn_text.items()]
+        line[0]["max_abs_err"] = max(line[0]["max_abs_err"], *(t[3] for t in k1_rn_text.values()))
+        print(f"  RN50 / RN50x64 img/s: {rn_rates}; RN50 image tower device-time shares: {rn_shares}")
         line[3]["at_b1"] = k4["at_b1"]  # single-query worklists: nearly all of K4's launches
     except Exception as e:  # every phase failure ends the run with its phase named
         import traceback

@@ -1,8 +1,9 @@
 """Per-index resource bundle + multi-index loading.
 
 Counterpart of `clip_retrieval_tpu/back/resources.py`: `ClipResource`,
-`load_clip_index`, `load_clip_indices`.  The model bundle, the safety head
-and the indices of a resource live on `clip_options.device`.
+`load_clip_index`, `load_clip_indices`.  The model bundle, the M-CLIP text
+encoder (when `enable_mclip_option` and `mclip_model` are set), the safety
+head and the indices of a resource live on `clip_options.device`.
 """
 
 from __future__ import annotations
@@ -44,10 +45,14 @@ def load_clip_index(clip_options: ClipOptions) -> ClipResource:
         LOGGER.warning("use_jit=False is accepted for CLI parity but ignored — PyTorch runs eagerly")
     bundle = zoo.load_model(clip_options.clip_model, clip_options.checkpoint, device)
 
+    model_txt_mclip = None
     if clip_options.enable_mclip_option and clip_options.mclip_model:
-        LOGGER.warning(
-            "mCLIP text towers (models/mclip.py) are not ported yet (ROADMAP queue 1, item 12); use_mclip disabled"
-        )
+        from ..models.mclip import load_mclip
+
+        try:
+            model_txt_mclip = load_mclip(clip_options.mclip_model, device)
+        except Exception as e:  # serving boots without the option, as the JAX package does
+            LOGGER.warning("mCLIP unavailable (%s); use_mclip disabled", e)
 
     safety_model = (
         safety_mod.load_safety_model(clip_options.clip_model, device) if clip_options.provide_safety_model else None
@@ -95,7 +100,7 @@ def load_clip_index(clip_options: ClipOptions) -> ClipResource:
 
     return ClipResource(
         bundle=bundle,
-        model_txt_mclip=None,
+        model_txt_mclip=model_txt_mclip,
         safety_model=safety_model,
         violence_detector=violence_detector,
         aesthetic_embeddings=aesthetic_embeddings,

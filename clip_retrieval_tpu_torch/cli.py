@@ -5,10 +5,10 @@ of a subcommand are the target function's parameters, so
 `clip-retrieval-tpu-torch inference --input_dataset d --output_folder o
 --clip_model ViT-L/14` calls `inference.main.main(...)` and
 `clip-retrieval-tpu-torch back --indices_paths p.json --device cpu` calls
-`back.app.clip_back(...)`.  The port has 9 of the JAX CLI's 12 subcommands:
+`back.app.clip_back(...)`.  The port has 11 of the JAX CLI's 12 subcommands:
 `inference`, `index`, `filter`, `back`, `front`, `end2end`, `index_combiner`,
-`parquet_to_arrow` and `inference.worker` (`convert`, `convert.nsfw_keras`
-and `inference.slurm_worker` are not ported yet).  Also runnable as
+`parquet_to_arrow`, `inference.worker`, `convert` and `convert.nsfw_keras`
+(`inference.slurm_worker` is not ported yet).  Also runnable as
 `python -m clip_retrieval_tpu_torch.cli ...`.
 """
 
@@ -69,7 +69,19 @@ def _lazy_commands() -> dict[str, Callable[[], Callable]]:
 
         return fn
 
+    def convert():
+        from .models.convert import convert as fn
+
+        return fn
+
+    def convert_nsfw_keras():
+        from .models.convert import convert_keras_nsfw as fn
+
+        return fn
+
     return {
+        "convert": convert,
+        "convert.nsfw_keras": convert_nsfw_keras,
         "inference": inference,
         "index": index,
         "filter": filter_,

@@ -15,6 +15,9 @@ with "image_tensor" (uint8 HWC) / "text_tokens" → output dict with
 - Only uint8 pixels and int tokens cross to the device, only fp16
   embeddings come back.  Batches staged by `staging.DeviceStagingReader`
   are already padded and on the device.
+- With `use_mclip`, the text embeddings come from the M-CLIP encoder in
+  `mclip_model` (`models/mclip.py`), on the same device, from the raw
+  captions; the images still go through the CLIP tower.
 """
 
 from __future__ import annotations
@@ -48,8 +51,13 @@ class ClipMapper:
         device: str | torch.device = "cuda",
     ):
         self.device = resolve_device(device)
+        self.mclip = None
         if use_mclip:
-            raise NotImplementedError("mCLIP text towers are not ported yet (ROADMAP queue 1, 'Other towers')")
+            # the reference mapper swaps the text path for a multilingual
+            # encoder; it reads raw text, not CLIP tokens
+            from ..models.mclip import load_mclip
+
+            self.mclip = load_mclip(mclip_model, self.device)
         self.enable_image = enable_image
         self.enable_text = enable_text
         self.batch_size = batch_size
@@ -98,7 +106,10 @@ class ClipMapper:
                 img = self.embed_images(self.to_device(arr))[:n]
             else:
                 img = self.embed_images(images)[:staged_n]
-        if self.enable_text:
+        if self.enable_text and self.mclip is not None:
+            out["text_embs"] = self.mclip(batch["text"])
+            out["text"] = batch["text"]
+        elif self.enable_text:
             tokens = batch["text_tokens"]
             if staged_n is None:
                 arr, n = self.pad_batch(tokens.astype(np.int32))

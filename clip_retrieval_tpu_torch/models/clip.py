@@ -1,10 +1,12 @@
-"""CLIP in PyTorch: ViT image tower + causal text transformer.
+"""CLIP in PyTorch: ViT or ResNet image tower + causal text transformer.
 
 Counterpart of `clip_retrieval_tpu/models/clip.py`, with the same parameter
 names and layouts (x@W kernels of shape (in, out), the patch kernel as
 (P, P, 3, W)), so that `loaders.from_jax_params` copies the JAX tree over
 unchanged.  Where JAX scans over weights stacked on a leading layer axis,
 each tower here holds an `nn.ModuleList` of `Block`s walked by a Python loop.
+A config with `resnet_layers` gets the ModifiedResNet image tower of
+`models/resnet.py`; its text tower is the same transformer.
 
 Casting points follow the JAX package: weights are cast to the compute dtype
 for each matmul, which accumulates in f32; biases and LayerNorm are applied
@@ -123,10 +125,6 @@ def _blocks(n: int, width: int, mlp_ratio: float, heads: int, cfg: CLIPConfig, c
 class VisionTransformer(nn.Module):
     def __init__(self, cfg: CLIPConfig, device=None):
         super().__init__()
-        if cfg.vision_kind != "vit":
-            raise NotImplementedError(
-                f"{cfg.name}: ResNet image towers are not ported yet (ROADMAP queue 1, 'Other towers')"
-            )
         self.cfg = cfg
         w = cfg.vision_width
         self.patch_embed = nn.Module()
@@ -184,7 +182,12 @@ class CLIP(nn.Module):
     def __init__(self, cfg: CLIPConfig, device=None):
         super().__init__()
         self.cfg = cfg
-        self.visual = VisionTransformer(cfg, device)
+        if cfg.vision_kind == "resnet":
+            from .resnet import ResNetVisual
+
+            self.visual = ResNetVisual(cfg, device)
+        else:
+            self.visual = VisionTransformer(cfg, device)
         self.text = TextTransformer(cfg, device)
         self.logit_scale = nn.Parameter(
             torch.tensor(float(np.log(1 / 0.07)), device=device), requires_grad=False
@@ -200,7 +203,8 @@ def init_clip(cfg: CLIPConfig, seed: int = 0, device: str | torch.device = "cuda
     """Random-init parameters with the JAX package's (openai-style) scales:
     N(0, 1)·width^-½ for attention, MLP-in, patch, class, position and
     projection weights; (2·width)^-½ for MLP-out; 0.02 and 0.01 for the
-    text token and position embeddings; LayerNorm 1/0 and zero biases.
+    text token and position embeddings; LayerNorm 1/0 and zero biases.  A
+    ResNet image tower takes `resnet.init_resnet_visual`'s scales.
     Random numbers come from a `torch.Generator` on `device` seeded with
     `seed`, so they differ from the JAX package's for the same seed.  The
     default device is CUDA; without a GPU it raises unless given "cpu"."""
@@ -214,13 +218,20 @@ def init_clip(cfg: CLIPConfig, seed: int = 0, device: str | torch.device = "cuda
 
     with torch.no_grad():
         v, w = model.visual, cfg.vision_width
-        for p in (v.patch_embed.kernel, v.class_emb, v.pos_emb, v.proj):
-            fill(p, w ** -0.5)
+        towers = []
+        if cfg.vision_kind == "resnet":
+            from .resnet import init_resnet_visual
+
+            init_resnet_visual(v, gen)
+        else:
+            for p in (v.patch_embed.kernel, v.class_emb, v.pos_emb, v.proj):
+                fill(p, w ** -0.5)
+            towers.append((v.blocks, w))
         t, tw = model.text, cfg.text_width
         fill(t.token_emb, 0.02)
         fill(t.pos_emb, 0.01)
         fill(t.proj, tw ** -0.5)
-        for blocks, width in ((v.blocks, w), (t.blocks, tw)):
+        for blocks, width in towers + [(t.blocks, tw)]:
             for blk in blocks:
                 for p in (blk.attn.wq, blk.attn.wk, blk.attn.wv, blk.attn.wo, blk.mlp.w_in):
                     fill(p, width ** -0.5)
@@ -261,7 +272,8 @@ def encode_image(
     compute_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """images: (B, H, W, 3) uint8 or CLIP-normalized float → f32
-    (B, embed_dim), L2-normalized unless normalize=False."""
+    (B, embed_dim), L2-normalized unless normalize=False.  The ViT and the
+    ResNet tower take the same normalized input (JAX `encode_image`)."""
     if images.dtype == torch.uint8:
         x = normalize_images(images, compute_dtype)
     elif images.dtype in (torch.float32, torch.bfloat16):

@@ -9,8 +9,12 @@ for ViT towers:
 
 Every source is first turned into the JAX package's nested tree of numpy
 arrays (blocks stacked on a leading layer axis, x@W kernels), and
-`from_jax_params` copies that tree into the port's modules.  ResNet image
-towers are not ported yet.
+`from_jax_params` copies that tree into the port's modules.  An openai
+ModifiedResNet checkpoint (RN50…RN50x64) has its BatchNorms folded into the
+preceding convolutions (`_fold_conv_bn`, in f64) and becomes the JAX
+package's ResNet tree (HWIO kernels, each stage's tail blocks stacked on a
+leading axis, `None` for a one-block stage); `from_jax_params` turns the
+kernels to the port's OIHW.
 """
 
 from __future__ import annotations
@@ -61,6 +65,40 @@ def _copy_blocks(blocks, tree: Mapping[str, Any], prefix: str):
             _copy(getattr(blk.mlp, name), tree["mlp"][name][i], f"{prefix}.mlp.{name}[{i}]")
 
 
+def _copy_conv(conv, tree: Mapping[str, Any], name: str, i: int | None = None):
+    """One folded conv of the JAX ResNet tree (HWIO kernel; `i` picks a
+    block of a stacked tail) → `resnet.Conv` (OIHW)."""
+    pick = (lambda a: np.asarray(a)) if i is None else (lambda a: np.asarray(a)[i])
+    _copy(conv.kernel, pick(tree["kernel"]).transpose(3, 2, 0, 1), f"{name}.kernel")
+    for leaf in ("scale", "bias"):
+        _copy(getattr(conv, leaf), pick(tree[leaf]), f"{name}.{leaf}")
+
+
+def _copy_bottleneck(blk, tree: Mapping[str, Any], name: str, i: int | None = None):
+    for conv in ("conv1", "conv2", "conv3", "down"):
+        if (getattr(blk, conv) is None) != (conv not in tree):
+            raise ValueError(f"{name}.{conv}: the tree and the model disagree on whether it exists")
+        if conv in tree:
+            _copy_conv(getattr(blk, conv), tree[conv], f"{name}.{conv}", i)
+
+
+def _copy_resnet_visual(v, vt: Mapping[str, Any]):
+    for conv in ("conv1", "conv2", "conv3"):
+        _copy_conv(getattr(v.stem, conv), vt["stem"][conv], f"visual.stem.{conv}")
+    if len(vt["stages"]) != len(v.stages):
+        raise ValueError(f"visual.stages: {len(vt['stages'])} stages for the model's {len(v.stages)}")
+    for si, (stage, st) in enumerate(zip(v.stages, vt["stages"])):
+        name = f"visual.stages[{si}]"
+        _copy_bottleneck(stage.head, st["head"], f"{name}.head")
+        n_tail = 0 if st["tail"] is None else len(st["tail"]["conv1"]["kernel"])
+        if n_tail != len(stage.tail):
+            raise ValueError(f"{name}.tail: {n_tail} blocks for the model's {len(stage.tail)}")
+        for i, blk in enumerate(stage.tail):
+            _copy_bottleneck(blk, st["tail"], f"{name}.tail[{i}]", i)
+    for leaf in ("pos_emb", "wq", "bq", "wk", "bk", "wv", "bv", "wc", "bc"):
+        _copy(getattr(v.attnpool, leaf), vt["attnpool"][leaf], f"visual.attnpool.{leaf}")
+
+
 def from_jax_params(tree: Mapping[str, Any], cfg: CLIPConfig, device: str | torch.device = "cuda") -> CLIP:
     """The JAX package's param tree (arrays as numpy, blocks stacked on a
     leading layer axis) → a `CLIP` module on `device`, weights in f32.  The
@@ -70,13 +108,16 @@ def from_jax_params(tree: Mapping[str, Any], cfg: CLIPConfig, device: str | torc
     vt, tt = tree["visual"], tree["text"]
     v, t = model.visual, model.text
     with torch.no_grad():
-        _copy(v.patch_embed.kernel, vt["patch_embed"]["kernel"], "visual.patch_embed.kernel")
-        for name in ("class_emb", "pos_emb", "proj"):
-            _copy(getattr(v, name), vt[name], f"visual.{name}")
-        for ln in ("ln_pre", "ln_post"):
-            for name in ("scale", "bias"):
-                _copy(getattr(getattr(v, ln), name), vt[ln][name], f"visual.{ln}.{name}")
-        _copy_blocks(v.blocks, vt["blocks"], "visual.blocks")
+        if cfg.vision_kind == "resnet":
+            _copy_resnet_visual(v, vt)
+        else:
+            _copy(v.patch_embed.kernel, vt["patch_embed"]["kernel"], "visual.patch_embed.kernel")
+            for name in ("class_emb", "pos_emb", "proj"):
+                _copy(getattr(v, name), vt[name], f"visual.{name}")
+            for ln in ("ln_pre", "ln_post"):
+                for name in ("scale", "bias"):
+                    _copy(getattr(getattr(v, ln), name), vt[ln][name], f"visual.{ln}.{name}")
+            _copy_blocks(v.blocks, vt["blocks"], "visual.blocks")
         for name in ("token_emb", "pos_emb", "proj"):
             _copy(getattr(t, name), tt[name], f"text.{name}")
         for name in ("scale", "bias"):
@@ -182,13 +223,65 @@ def _openai_tower(sd, prefix: str, n_layers: int, width: int):
     }
 
 
-def openai_tree(sd: Mapping[str, Any], cfg: CLIPConfig) -> dict:
-    """openai/open_clip ViT state dict → the JAX package's param tree."""
-    if "visual.layer1.0.conv1.weight" in sd:
-        raise NotImplementedError(
-            "ResNet (ModifiedResNet) checkpoints are not ported yet (ROADMAP queue 1, 'Other towers')"
-        )
+def _fold_conv_bn(sd: Mapping[str, Any], conv_key: str, bn_key: str, eps: float = 1e-5) -> dict:
+    """Fold an inference BatchNorm into the preceding bias-free conv, in f64:
+    gamma·(conv(x) − mean)/sqrt(var + eps) + beta = conv(x)·scale + bias.
+    Conv weight (O, I, kh, kw) → HWIO, as in the JAX tree."""
+    kernel = _np(sd[conv_key + ".weight"]).transpose(2, 3, 1, 0)
+    gamma, beta, mean, var = (
+        _np(sd[f"{bn_key}.{k}"]).astype(np.float64) for k in ("weight", "bias", "running_mean", "running_var")
+    )
+    scale = gamma / np.sqrt(var + eps)
+    return {"kernel": kernel, "scale": scale.astype(np.float32), "bias": (beta - mean * scale).astype(np.float32)}
+
+
+def _stack_trees(trees: list):
+    """Equal-shaped nested dicts of arrays → one dict of arrays stacked on a
+    new leading axis (the JAX package's `jax.tree.map(np.stack, ...)`)."""
+    if isinstance(trees[0], dict):
+        return {k: _stack_trees([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
+def convert_openai_resnet_visual(sd: Mapping[str, Any], cfg: CLIPConfig) -> dict:
+    """openai ModifiedResNet `visual.*` keys → the JAX package's ResNet tree
+    (BN folded, each stage's tail blocks stacked, `None` for one block)."""
     g = lambda k: _np(sd[k])
+    stem = {f"conv{i}": _fold_conv_bn(sd, f"visual.conv{i}", f"visual.bn{i}") for i in (1, 2, 3)}
+
+    def block(prefix: str, down: bool) -> dict:
+        p = {f"conv{j}": _fold_conv_bn(sd, f"{prefix}.conv{j}", f"{prefix}.bn{j}") for j in (1, 2, 3)}
+        if down:
+            p["down"] = _fold_conv_bn(sd, f"{prefix}.downsample.0", f"{prefix}.downsample.1")
+        return p
+
+    stages = []
+    for si, n_blocks in enumerate(cfg.resnet_layers):
+        tails = [block(f"visual.layer{si + 1}.{i}", down=False) for i in range(1, n_blocks)]
+        stages.append({"head": block(f"visual.layer{si + 1}.0", down=True),
+                       "tail": _stack_trees(tails) if tails else None})
+    ap = "visual.attnpool."
+    attnpool = {"pos_emb": g(ap + "positional_embedding")}
+    for ours, theirs in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"), ("c", "c_proj")):
+        attnpool["w" + ours] = g(ap + theirs + ".weight").T
+        attnpool["b" + ours] = g(ap + theirs + ".bias")
+    return {"stem": stem, "stages": stages, "attnpool": attnpool}
+
+
+def openai_tree(sd: Mapping[str, Any], cfg: CLIPConfig) -> dict:
+    """openai/open_clip state dict (ViT or ModifiedResNet image tower) → the
+    JAX package's param tree."""
+    g = lambda k: _np(sd[k])
+    text = {
+        "token_emb": g("token_embedding.weight"),
+        "pos_emb": g("positional_embedding"),
+        "blocks": _openai_tower(sd, "transformer", cfg.text_layers, cfg.text_width),
+        "ln_final": {"scale": g("ln_final.weight"), "bias": g("ln_final.bias")},
+        "proj": g("text_projection"),
+    }
+    if "visual.layer1.0.conv1.weight" in sd:
+        visual = convert_openai_resnet_visual(sd, cfg)
+        return {"visual": visual, "text": text, "logit_scale": g("logit_scale").reshape(())}
     visual = {
         "patch_embed": {"kernel": g("visual.conv1.weight").transpose(2, 3, 1, 0)},
         "class_emb": g("visual.class_embedding").reshape(-1),
@@ -197,13 +290,6 @@ def openai_tree(sd: Mapping[str, Any], cfg: CLIPConfig) -> dict:
         "blocks": _openai_tower(sd, "visual.transformer", cfg.vision_layers, cfg.vision_width),
         "ln_post": {"scale": g("visual.ln_post.weight"), "bias": g("visual.ln_post.bias")},
         "proj": g("visual.proj"),
-    }
-    text = {
-        "token_emb": g("token_embedding.weight"),
-        "pos_emb": g("positional_embedding"),
-        "blocks": _openai_tower(sd, "transformer", cfg.text_layers, cfg.text_width),
-        "ln_final": {"scale": g("ln_final.weight"), "bias": g("ln_final.bias")},
-        "proj": g("text_projection"),
     }
     return {"visual": visual, "text": text, "logit_scale": g("logit_scale").reshape(())}
 

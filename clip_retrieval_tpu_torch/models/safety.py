@@ -8,12 +8,12 @@ query.  The MLP is a plain list of (W, b) tensors on one device, run under
 Weights load from local files only, from the same places as the JAX
 package: `nsfw_mlp.npz` in `~/.cache/clip_retrieval_tpu/<model>/` (the file
 `save_mlp_npz` of either package writes), the reference's torch H14
-checkpoint, violence prompt embeddings and aesthetic rating embeddings in
-either cache layout.  Nothing is downloaded (the JAX package's
-CRT_ALLOW_DOWNLOAD fetch is not ported), and the published autokeras
-SavedModels need `models/convert.py` (ROADMAP queue 1, item 3): convert them
-once with the JAX package, which caches the npz this package reads.  Missing
-weights → None (the serving option degrades off with a warning).
+checkpoint, the published autokeras NSFW SavedModel directories in either
+cache layout (converted once by `models/convert.py`, which needs
+`tensorflow`, and cached as `nsfw_mlp.npz`), violence prompt embeddings and
+aesthetic rating embeddings in either cache layout.  Nothing is downloaded
+(the JAX package's CRT_ALLOW_DOWNLOAD fetch is not ported).  Missing weights
+→ None (the serving option degrades off with a warning).
 """
 
 from __future__ import annotations
@@ -97,11 +97,30 @@ def _reference_cache(clip_model: str) -> str:
     return os.path.expanduser("~/.cache/clip_retrieval/" + clip_model.replace("/", "_"))
 
 
+# the published autokeras NSFW heads' directory names, as the reference unzips them
+_NSFW_KERAS_DIRS = {"ViT-L/14": "clip_autokeras_binary_nsfw", "ViT-B/32": "clip_autokeras_nsfw_b32"}
+
+
+def _keras_nsfw_dir(clip_model: str) -> Optional[str]:
+    """The published autokeras SavedModel directory for this clip model in
+    our cache or the reference's, or None (nothing is downloaded)."""
+    dirname = _NSFW_KERAS_DIRS.get(clip_model)
+    if dirname is None:
+        return None
+    for root in (cache_folder(clip_model), _reference_cache(clip_model)):
+        d = os.path.join(root, dirname)
+        if os.path.isdir(d):
+            return d
+    return None
+
+
 def load_safety_model(clip_model: str, device: str | torch.device = "cuda") -> Optional[MLP]:
     """Load an NSFW scorer for this model's embedding space, or None.
 
     Sources, in order: converted npz in our cache; the reference's torch
-    H14 checkpoint (open_clip:ViT-H-14 only, the only space it fits)."""
+    H14 checkpoint (open_clip:ViT-H-14 only, the only space it fits); the
+    published autokeras SavedModel in either cache layout, converted on the
+    fly and cached as npz."""
     device = resolve_device(device)
     npz_path = os.path.join(cache_folder(clip_model), "nsfw_mlp.npz")
     if os.path.exists(npz_path):
@@ -110,6 +129,17 @@ def load_safety_model(clip_model: str, device: str | torch.device = "cuda") -> O
     if clip_model == "open_clip:ViT-H-14" and os.path.exists(h14_path):
         sd = torch.load(h14_path, map_location="cpu", weights_only=False)
         return MLP(_torch_mlp_to_weights(sd), device=device)
+    keras_dir = _keras_nsfw_dir(clip_model)
+    if keras_dir is not None:
+        from .convert import keras_nsfw_weights
+
+        try:
+            weights, final_act = keras_nsfw_weights(keras_dir)
+        except Exception as e:  # no tensorflow, or not a SavedModel: serve without the head, as JAX does
+            print(f"failed to convert keras NSFW model {keras_dir}: {e}")
+        else:
+            save_mlp_npz(npz_path, weights, final_activation=final_act, relu_last_n_skipped=1)
+            return MLP(weights, relu_last_n_skipped=1, final_activation=final_act, device=device)
     print(f"WARNING: no NSFW model weights found for {clip_model}; use_safety_model requests will be ignored")
     return None
 

@@ -137,13 +137,6 @@ def test_zoo_random_model_is_init_seed0():
     assert toks.shape == (1, TEST_TINY.context_length) and toks.dtype == np.int32
 
 
-def test_resnet_config_not_ported():
-    from clip_retrieval_tpu_torch.models.configs import get_config
-
-    with pytest.raises(NotImplementedError, match="ResNet"):
-        tclip.CLIP(get_config("RN50"))
-
-
 # ---------------------------------------------------------------------------
 # the tiny HF CLIPModel through both packages' converters
 # ---------------------------------------------------------------------------

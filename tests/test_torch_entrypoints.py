@@ -42,7 +42,7 @@ from tests.test_torch_pipeline import checkpoint  # noqa: F401  (module fixture)
 D = 32  # the checkpoint's embed dim
 DIST_ATOL = 1e-4
 SUBCOMMANDS = ["inference", "index", "filter", "back", "front", "end2end", "index_combiner", "parquet_to_arrow",
-               "inference.worker"]
+               "inference.worker", "convert", "convert.nsfw_keras"]
 
 
 def _unit(x):
@@ -229,8 +229,6 @@ def test_help_lists_the_ported_subcommands(capsys):
         cli.main(["--help"])
     out = capsys.readouterr().out
     assert "{" + ",".join(sorted(SUBCOMMANDS)) + "}" in out
-    with pytest.raises(SystemExit):
-        cli.main(["convert"])  # not ported yet
 
 
 @pytest.mark.parametrize("command", SUBCOMMANDS)
@@ -255,7 +253,8 @@ def test_inference_accepts_use_jit_and_clip_cache_path(tmp_path, capsys):
 
 ENTRY_POINTS = [("inference.main", "main"), ("index.build", "clip_index"), ("back.app", "clip_back"),
                 ("index.combiner", "index_combiner"), ("back.prepro", "parquet_to_arrow"), ("front", "clip_front"),
-                ("filter", "clip_filter"), ("end2end", "clip_end2end")]
+                ("filter", "clip_filter"), ("end2end", "clip_end2end"), ("models.convert", "convert"),
+                ("models.convert", "convert_keras_nsfw")]
 
 
 @pytest.mark.parametrize("module,name", ENTRY_POINTS, ids=[f"{m}.{n}" for m, n in ENTRY_POINTS])

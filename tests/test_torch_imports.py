@@ -106,6 +106,36 @@ def test_importing_the_slice4_modules_leaves_both_out():
     assert proc.stdout.strip().endswith("OK"), proc.stdout
 
 
+# the modules of slice 5 (the ResNet and M-CLIP families, checkpoint conversion)
+SLICE5 = ["clip_retrieval_tpu_torch.models.resnet", "clip_retrieval_tpu_torch.models.mclip",
+          "clip_retrieval_tpu_torch.models.convert"]
+OPTIONAL = ("transformers", "tokenizers", "safetensors", "tensorflow", "tf_keras")
+
+
+@pytest.mark.parametrize("module", SLICE5)
+def test_slice5_sources_import_neither_jax_the_jax_package_nor_optional_packages_at_top(module):
+    """No import of jax or the JAX package anywhere; `transformers`,
+    `tokenizers`, `safetensors` and `tensorflow` only inside functions."""
+    text = (ROOT / (module.replace(".", "/") + ".py")).read_text()
+    assert not re.search(r"^\s*(import jax|from jax)", text, re.M)
+    assert not re.search(r"^\s*(from|import)\s+clip_retrieval_tpu(\.|\s|$)", text, re.M)
+    assert not re.search(rf"^(import|from) ({'|'.join(OPTIONAL)})\b", text, re.M)
+
+
+def test_importing_the_port_loads_no_optional_package():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import clip_retrieval_tpu_torch as p\n"
+        "import chip_smoke\n"
+        "for m in pkgutil.walk_packages(p.__path__, 'clip_retrieval_tpu_torch.'): importlib.import_module(m.name)\n"
+        f"bad = sorted(k for k in sys.modules if k.split('.')[0] in {OPTIONAL!r})\n"
+        "print('OK' if not bad else 'LOADED ' + ' '.join(bad[:5]))\n"
+    )
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("OK"), proc.stdout
+
+
 def test_new_entry_points_default_to_cuda(monkeypatch, tmp_path):
     """`filter`, `end2end` and `index_combiner` raise on their default
     device without a GPU, before any work; `parquet_to_arrow`, `clip_front`
