@@ -59,14 +59,31 @@ model families' published widths:
   projection) written as a checkpoint directory, loaded by `load_mclip`,
   timed at 1 and 32 texts, run by the mapper with `use_mclip` over the 512
   captions, and answering `/knn-service` text queries with `use_mclip` on
-  the merged IVF-int8 index with a direct search's ids (K3, no K1).
+  the merged IVF-int8 index with a direct search's ids (K3, no K1);
+- scale-out: two `inference --distribution_strategy pod` ranks (RANK 0/1,
+  WORLD_SIZE 2, LOCAL_RANK 0: two hosts of one card each) and two
+  `inference.slurm_worker` ranks (SLURM_PROCID 0/1 set by hand, as srun
+  would; sbatch is not needed), each its own process, over the 512 samples in 4
+  partitions at ViT-L/14 bf16, their partitions held bit for bit to one
+  sequential process's and their K1 launches counted by each process; the
+  list-sharded IVF-int8 tier built from the 10M index with its 4 shards all
+  on this card (`devices=["cuda:0"] * 4`: the cost of the shard logic, not a
+  speed-up), held on the exact, device and static routes at B=1 and B=32 (K3
+  once per shard per batch, scores equal to the int8 products, recall@40 at
+  least the unsharded tier's on every query, the unsharded ids at nprobe =
+  nlist), timed beside the unsharded tier, and served by `back` with
+  `sharded_index`; the flat_int8 tier over the same int8 rows on 4 shards
+  and on one device (equal ids); and the dp×tp train step at ViT-B/32 (full
+  width and depth, f32, batch 128) as a world of one nccl rank, 5 steps, its
+  first loss held to the plain forward on the CPU.
 
 Phases, each of which stops the script with a non-zero exit when it fails:
 device, build, K1 vs plain, K3 vs plain, K2 vs plain, K4 vs plain, main
 path, tower parity, times, sdpa path, K1 at the ResNet text shapes, RN50
 main path, RN tower parity, convert, index build, combine IVF-int8 build,
 index, served path, recall, query times, IVF-PQ checks, combine IVF-PQ,
-combine IVF-int8, arrow, end2end, filter, client, mclip.  Kernel launch
+combine IVF-int8, arrow, end2end, filter, client, mclip, pod and
+slurm_worker ranks, sharded IVF-int8, sharded flat_int8, train.  Kernel launch
 counts are set to 0 just before each path and read just after it.  The line before the
 last is a JSON object describing each kernel; the last line is `{"ok":
 true, "device": {...}}`.  Without a CUDA device, or without the package
@@ -134,6 +151,9 @@ MCLIP_CONFIG = {"model_type": "xlm-roberta", "architectures": ["XLMRobertaModel"
                 "eos_token_id": 2, "layer_norm_eps": 1e-5, "hidden_act": "gelu"}
 MCLIP_QUERIES = ["une photo d'un chat sur un canapé", "ein Foto von einem Hund im Schnee",
                  "a photo of sample number 7, seed 42", "una foto de la playa al atardecer", "猫の写真"]
+# slice 6: the sharded tiers' shards (all on the one card: cuda:0 four times), the rank runs' partitions, and the
+# train step's model and batch (ViT-B/32 at full width and depth)
+SHARDS, RANK_PARTITIONS, TRAIN_MODEL, TRAIN_BATCH = 4, 4, "ViT-B/32", 128
 # the card's published peaks (H100 SXM data sheet): HBM bytes/s, dense bf16 FLOP/s, SMs
 HBM_BPS, BF16_FLOPS, SMS = 3.35e12, 989e12, 132
 
@@ -1191,10 +1211,10 @@ def phase_serve(kernels: dict, sample_ids, originals, pq_rows, pq_ids, pq_probed
     return {**c, "port": port}, served, pq_served
 
 
-def phase_recall(index, int8scan, originals, served) -> float:
+def phase_recall(index, int8scan, originals, served) -> np.ndarray:
     """recall@40 of the served answers of (a) against an exhaustive scan of
     every chunk by K3's plain version, in blocks of chunks with a running
-    top-k merge."""
+    top-k merge.  Returns the scan's ids (N_QUERIES, 40)."""
     import torch
 
     from clip_retrieval_tpu_torch.ops.int8mm import quantize_rows_device
@@ -1216,7 +1236,7 @@ def phase_recall(index, int8scan, originals, served) -> float:
     print(f"  recall@{TOPK} of the {len(served)} served embedding queries vs the exhaustive plain scan of "
           f"{nchunks} chunks: {recall:.4f} (scan {time.perf_counter() - t0:.1f} s)")
     check(recall >= MIN_RECALL, f"recall@{TOPK} {recall:.4f} < {MIN_RECALL}")
-    return recall
+    return truth
 
 
 def p50_ms(fn, iters: int, warm: int = 3) -> tuple[float, float]:
@@ -2078,6 +2098,303 @@ def phase_mclip(int8_folder: str, kernels: dict, gpu: str) -> dict:
     return add_counts(mapper_counts, served_counts)
 
 
+def int8_product_err(index, q: np.ndarray, vals: np.ndarray, ids: np.ndarray) -> float:
+    """Largest gap between the scores a search returned and the int8 product
+    of each query and the row it names: the query quantized as the index
+    quantizes it, the row's stored int8 values and scale, f32 in K3's order."""
+    import torch
+
+    from clip_retrieval_tpu_torch.ops.int8mm import quantize_rows_device
+
+    qq, qs = quantize_rows_device(torch.from_numpy(q).cuda())
+    qq, qs = qq.cpu().numpy().astype(np.int64), qs.cpu().numpy()
+    pos = index._id_positions(ids.reshape(-1))
+    rows = np.asarray(index.q_vectors[pos], np.int64).reshape(*ids.shape, -1)
+    acc = np.einsum("bd,bkd->bk", qq, rows).astype(np.float32)
+    want = acc * qs[:, None] * np.asarray(index.scales[pos], np.float32).reshape(ids.shape)
+    return float(np.abs(vals - want).max())
+
+
+def recall_at(ids, truth) -> float:
+    return len(set(ids.tolist()) & set(truth.tolist())) / len(truth)
+
+
+def phase_sharded_ivf(index, originals, truth, kernels: dict, gpu: str) -> tuple[dict, dict]:
+    """`ShardedIVFInt8Index.from_index(<the served 10M index>, devices=
+    ["cuda:0"] * 4)`: at B=1 (8 queries alone) and B=32, k=40, on the exact,
+    device and static routes, K3 runs once per shard per batch (more only on
+    a counted overflow re-dispatch), every score is the int8 product of the
+    query and the row, and recall@40 against the exhaustive scan (`truth`)
+    is at least the unsharded tier's on every query; at nprobe = nlist the
+    ids equal the unsharded tier's.  Search-batch p50 beside the unsharded
+    tier's.  Then `back` loads the index folder with `sharded_index` (every
+    visible card) and answers embedding queries with a direct search's ids.
+    Returns (launch counts of the path, p50 ms by tier, route and B)."""
+    import torch
+
+    from clip_retrieval_tpu_torch.back.app import make_app
+    from clip_retrieval_tpu_torch.back.options import ClipOptions
+    from clip_retrieval_tpu_torch.back.resources import load_clip_indices
+    from clip_retrieval_tpu_torch.index.sharded_ivf import ShardedIVFInt8Index
+
+    singles = [originals[i : i + 1] for i in range(8)]
+    b32 = originals[:32]
+    base1 = [index.search(q, TOPK)[1][0] for q in singles]
+    base32 = index.search(b32, TOPK)[1]
+    index.nprobe = NLIST
+    full32 = index.search(b32, TOPK)[1]
+    index.nprobe = NPROBE
+    p50 = {("unsharded", index.resolve_union(b), b): p50_ms(lambda: index.search(originals[:b], TOPK), 30)[0]
+           for b in (1, 32)}
+
+    t0 = time.perf_counter()
+    sharded = ShardedIVFInt8Index.from_index(index, devices=["cuda:0"] * SHARDS)
+    sharded._ensure_device()
+    torch.cuda.synchronize()
+    shards = sharded._shards
+    check(len(shards) == SHARDS and sum(sh["counts"].size for sh in shards) == NLIST,
+          f"{len(shards)} shards hold {sum(sh['counts'].size for sh in shards)} lists")
+    gb = sum(sh["img"]["rows"].numel() for sh in shards) / 1e9
+    print(f"  [{gpu}] sharded IVF-int8: {SHARDS} shards on cuda:0 of {[sh['counts'].size for sh in shards]} lists, "
+          f"{[sh['pad_chunk'] for sh in shards]} chunks, {gb:.3f} GB int8 in all; images built one shard at a time "
+          f"in {time.perf_counter() - t0:.1f} s")
+
+    zero_counts(kernels)
+    for route in ("exact", "device", "static"):
+        sharded.union = route
+        worst_err, gains = 0.0, []
+        for qb, rows, base in [(q, [i], base1[i][None]) for i, q in enumerate(singles)] + [(b32, range(32), base32)]:
+            k3, redo = kernels["k3"].launches, sharded.overflow_redispatches
+            vals, ids = sharded.search(qb, TOPK)
+            launched = kernels["k3"].launches - k3
+            check(launched == SHARDS * (1 + sharded.overflow_redispatches - redo),
+                  f"{route} route, B={len(qb)}: K3 launched {launched} times for {SHARDS} shards")
+            check(bool((ids >= 0).all()), f"{route} route: a query found fewer than {TOPK} rows")
+            worst_err = max(worst_err, int8_product_err(index, qb, vals, ids))
+            for j, row in enumerate(rows):
+                got, want = recall_at(ids[j], truth[row]), recall_at(base[j], truth[row])
+                check(got >= want, f"{route} route, B={len(qb)}, query {row}: recall@{TOPK} {got} < unsharded {want}")
+                gains.append(got - want)
+        check(worst_err <= 1e-6, f"{route} route: a score is {worst_err} off the int8 product")
+        union = sharded.last_union_chunks  # of the B=32 batch at nprobe 64
+        sharded.nprobe = NLIST
+        check(np.array_equal(sharded.search(b32, TOPK)[1], full32),
+              f"{route} route at nprobe = nlist: ids differ from the unsharded tier's")
+        sharded.nprobe = NPROBE
+        print(f"  {route} route: B=1 x 8 and B=32: K3 {SHARDS} launches a batch; scores = int8 products (max gap "
+              f"{worst_err:.1e}); recall@{TOPK} vs the exhaustive scan >= unsharded on every query (mean gain "
+              f"{np.mean(gains):.4f}); at nprobe {NLIST} the ids equal the unsharded tier's; B=32 union at nprobe "
+              f"{NPROBE} {union} chunks on the largest shard, {sharded.overflow_redispatches} overflow re-dispatches "
+              f"so far")
+    for route in ("exact", "device", "static"):
+        sharded.union = route
+        for b in (1, 32):
+            p50[("sharded", route, b)] = p50_ms(lambda: sharded.search(originals[:b], TOPK), 30)[0]
+    counts = read_counts(kernels)
+    print(f"  [{gpu}] search-batch p50 (ms, host clock, 30 batches of `search` k={TOPK}; all {SHARDS} shards on ONE "
+          f"card, so this is the cost of the shard logic, not a speed-up): "
+          + ", ".join(f"{t} {r} B={b}: {v:.3f}" for (t, r, b), v in p50.items()) + f"; launches {counts}")
+    del sharded, shards
+    torch.cuda.empty_cache()
+
+    name = f"{INDEX_NAME}_sharded"
+    paths = os.path.join(WORK_DIR, "sharded_paths.json")
+    with open(paths, "w") as f:
+        json.dump({name: {"indice_folder": os.path.join(WORK_DIR, "index"), "sharded_index": True}}, f)
+    t0 = time.perf_counter()
+    resources = load_clip_indices(paths, ClipOptions(
+        indice_folder="", clip_model=MODEL, columns_to_return=["caption"], provide_aesthetic_embeddings=False,
+        enable_faiss_memory_mapping=True, device="cuda"))
+    served = resources[name].image_index
+    check(isinstance(served, ShardedIVFInt8Index) and len(served.devices) == torch.cuda.device_count(),
+          f"back loaded {type(served).__name__} over {getattr(served, 'devices', None)}")
+    app = make_app(resources, device="cuda")
+    body = dict(num_images=TOPK, indice_name=name, modality="image", deduplicate=False, use_safety_model=False,
+                use_violence_detector=False)
+    k3 = kernels["k3"].launches
+    for i in range(4):
+        status, out = wsgi_json(app, "POST", "/knn-service", {"embedding_input": originals[i].tolist(), **body})
+        check(status.startswith("200") and len(out) == TOPK, f"sharded /knn-service answered {status}: {out}")
+        check([r["id"] for r in out] == served.search(originals[i : i + 1], TOPK)[1][0].tolist(),
+              f"sharded /knn-service ids differ from a direct search at query {i}")
+    check(kernels["k3"].launches > k3, "K3 did not launch for the sharded /knn-service queries")
+    print(f"  [{gpu}] back with sharded_index: {len(served.devices)} shard(s), one per visible card, loaded with "
+          f"the model in {time.perf_counter() - t0:.1f} s; 4 /knn-service embedding queries answer a direct "
+          f"search's ids; launches {read_counts(kernels)}")
+    counts = read_counts(kernels)
+    del app, resources, served
+    torch.cuda.empty_cache()
+    return counts, p50
+
+
+def phase_sharded_flat(index, originals, sample_ids, kernels: dict, gpu: str) -> dict:
+    """The 10M index's int8 rows as a `flat_int8` index on devices=["cuda:0"]
+    * 4 and on ["cuda:0"]: equal ids at B=1 and B=32, each stored row found
+    first (ids are row positions here), no kernel launched."""
+    import torch
+
+    from clip_retrieval_tpu_torch.index.sharded_flat import ShardedFlatIndex
+
+    zero_counts(kernels)
+    got, p50 = {}, {}
+    for n in (SHARDS, 1):
+        flat = ShardedFlatIndex(DIM, index.q_vectors, index.scales, devices=["cuda:0"] * n)
+        got[n] = [flat.search(originals[i : i + 1], TOPK)[1][0] for i in range(8)] + [flat.search(originals[:32],
+                                                                                                  TOPK)[1]]
+        for b in (1, 32):
+            p50[(n, b)] = p50_ms(lambda: flat.search(originals[:b], TOPK), 10)[0]
+        del flat
+        torch.cuda.empty_cache()
+    for a, b in zip(got[SHARDS], got[1]):
+        check(np.array_equal(a, b), "flat_int8 on 4 shards and on one device return different ids")
+    first = np.asarray(index.list_ids)[got[1][-1][:, 0]]
+    check(np.array_equal(first, sample_ids[:32]), "flat_int8 does not find each stored row first")
+    counts = read_counts(kernels)
+    check(not any(counts.values()), f"the flat_int8 tier launched a kernel: {counts}")
+    print(f"  [{gpu}] sharded flat_int8 over the 10M int8 rows: {SHARDS} shards on cuda:0 and one device give equal "
+          f"ids at B=1 (8 queries) and B=32, each stored row first; search p50 (ms, 10 batches) "
+          + ", ".join(f"{n} shard(s) B={b}: {v:.2f}" for (n, b), v in p50.items()) + f"; launches {counts}")
+    return counts
+
+
+RANK_CODE = ("import sys\nfrom clip_retrieval_tpu_torch import cli\nfrom clip_retrieval_tpu_torch.ops import flash\n"
+             "cli.main(sys.argv[1:])\nprint('K1_LAUNCHES', flash.flash_attention_packed.launches, flush=True)\n")
+
+
+def phase_ranks(gpu: str) -> tuple[dict, dict]:
+    """Batch inference by ranks, each its own process: two `inference
+    --distribution_strategy pod` ranks (RANK 0/1, WORLD_SIZE 2, LOCAL_RANK 0:
+    two hosts of one card each) and two `inference.slurm_worker` ranks
+    (SLURM_PROCID 0/1, SLURM_NTASKS 2, SLURM_LOCALID 0, as srun sets them) over
+    the main path's 512 samples at ViT-L/14 bf16 in 4 partitions, beside one
+    sequential process writing the same 4 partitions.  Each rank's partitions
+    must equal the sequential ones bit for bit; each rank prints its K1
+    launches.  Returns the launch counts of the pod and the slurm ranks."""
+    from clip_retrieval_tpu_torch.inference.slurm import SlurmDistributor
+
+    corpus = f"{WORK_DIR}/corpus"
+    common = ["--clip_model", MODEL, "--batch_size", str(BATCH), "--num_prepro_workers", "2", "--device", "cuda"]
+
+    def inference(out: str, strategy: str) -> list:
+        return ["inference", "--input_dataset", corpus, "--output_folder", out, "--output_partition_count",
+                str(RANK_PARTITIONS), "--distribution_strategy", strategy, *common]
+
+    args = {"input_dataset": corpus, "output_folder": f"{WORK_DIR}/slurm", "output_partition_count": RANK_PARTITIONS,
+            "batch_size": BATCH, "num_prepro_workers": 2, "clip_model": MODEL, "device": "cuda",
+            "slurm_cache_path": f"{WORK_DIR}/slurm_cache"}
+    args_path, sbatch = SlurmDistributor(list(range(RANK_PARTITIONS)), args)._write_inputs()
+    with open(sbatch) as f:
+        script = f.read()
+    check("--ntasks-per-node=8" in script and "clip_retrieval_tpu_torch.inference.slurm_worker" in script,
+          "the sbatch script does not ask for one task per GPU running the port's rank entry")
+    runs = {"sequential": (inference(f"{WORK_DIR}/sequential", "sequential"), {})}
+    for r in range(2):
+        runs[f"pod{r}"] = (inference(f"{WORK_DIR}/pod", "pod"), {"RANK": str(r), "WORLD_SIZE": "2", "LOCAL_RANK": "0"})
+        runs[f"slurm{r}"] = (["inference.slurm_worker", "--worker_args_path", args_path],
+                             {"SLURM_PROCID": str(r), "SLURM_NTASKS": "2", "SLURM_LOCALID": "0"})
+    base = {k: v for k, v in os.environ.items()
+            if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "SLURM_PROCID", "SLURM_NTASKS")}
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen([sys.executable, "-c", RANK_CODE, *argv], env={**base, **env},
+                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for name, (argv, env) in runs.items()}
+    logs = {}
+    try:
+        for name, p in procs.items():
+            logs[name] = p.communicate(timeout=600)[0]
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    k1 = {}
+    for name, p in procs.items():
+        check(p.returncode == 0, f"rank process {name} exited {p.returncode}:\n{logs[name][-3000:]}")
+        lines = [ln for ln in logs[name].splitlines() if ln.startswith("K1_LAUNCHES")]
+        check(len(lines) == 1, f"rank process {name} printed no K1 count")
+        k1[name] = int(lines[0].split()[1])
+    per_rank = RANK_PARTITIONS // 2 * (24 + 12)  # 2 partitions of 128 samples, one batch each, per rank
+    for name in ("pod0", "pod1", "slurm0", "slurm1"):
+        check(k1[name] == per_rank, f"{name} launched K1 {k1[name]} times, expected {per_rank}")
+    for out in ("pod", "slurm"):
+        for kind in ("img_emb", "text_emb"):
+            for i in range(RANK_PARTITIONS):
+                got = np.load(f"{WORK_DIR}/{out}/{kind}/{kind}_{i}.npy")
+                want = np.load(f"{WORK_DIR}/sequential/{kind}/{kind}_{i}.npy")
+                check(got.shape == (SAMPLES // RANK_PARTITIONS, DIM) and np.array_equal(got, want),
+                      f"{out} {kind} partition {i} differs from the sequential run's")
+    print(f"  [{gpu}] ranks: 2 pod ranks and 2 slurm_worker ranks (each one process, this card) and one sequential "
+          f"process, {RANK_PARTITIONS} partitions of {SAMPLES // RANK_PARTITIONS} samples at {MODEL} bf16: every "
+          f"rank's partitions equal the sequential ones bit for bit; K1 launches by process {k1}; wall {wall:.1f} s "
+          f"for the five processes at once (start, model init, decode, inference)")
+    zero = {"k1": 0, "k2": 0, "k3": 0, "k4": 0}
+    return {**zero, "k1": k1["pod0"] + k1["pod1"]}, {**zero, "k1": k1["slurm0"] + k1["slurm1"]}
+
+
+def phase_train(kernels: dict, gpu: str) -> dict:
+    """`make_train_step` at ViT-B/32 (full width and depth, f32) on a world
+    of one nccl rank, 5 steps of batch 128: finite losses, the last below the
+    first, step 1's loss equal to the plain `clip_forward` + loss of the same
+    init on the CPU (rtol 1e-3; TF32 is off for the whole smoke, so the f32
+    products are f32); ms per step and peak memory; one bf16 step finite; no
+    kernel launched (attention takes the plain route)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from clip_retrieval_tpu_torch.models.clip import clip_forward, init_clip
+    from clip_retrieval_tpu_torch.models.configs import get_config
+    from clip_retrieval_tpu_torch.parallel.train import clip_contrastive_loss, make_train_step
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 must be off for the CPU comparison")
+    cfg = get_config(TRAIN_MODEL)
+    rng = np.random.default_rng(21)
+    images = torch.from_numpy(rng.integers(0, 256, (TRAIN_BATCH, cfg.image_size, cfg.image_size, 3), dtype=np.uint8))
+    tokens = torch.from_numpy(rng.integers(1, cfg.vocab_size - 1, (TRAIN_BATCH, cfg.context_length)).astype(np.int32))
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", rank=0, world_size=1,
+                            timeout=datetime.timedelta(minutes=5))
+    try:
+        zero_counts(kernels)
+        base = torch.cuda.memory_allocated()  # what the earlier phases still hold
+        init_fn, train_step = make_train_step(cfg, device="cuda")
+        params, opt = init_fn(0)
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms = [], []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, loss = train_step(params, opt, images, tokens)
+            losses.append(float(loss))
+            ms.append(1e3 * (time.perf_counter() - t0))
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        init16, step16 = make_train_step(cfg, compute_dtype=torch.bfloat16, device="cuda")
+        p16, o16 = init16(0)
+        loss16 = float(step16(p16, o16, images, tokens)[2])
+        counts = read_counts(kernels)
+    finally:
+        dist.destroy_process_group()
+    del params, opt, p16, o16
+    torch.cuda.empty_cache()
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0], f"losses {losses}")
+    check(math.isfinite(loss16), f"bf16 step loss {loss16}")
+    check(not any(counts.values()), f"the train step launched a kernel: {counts}")
+    t0 = time.perf_counter()
+    cpu = init_clip(cfg, 0, device="cpu")
+    with torch.no_grad():
+        loss_cpu = float(clip_contrastive_loss(*clip_forward(cpu, images, tokens, attn_impl="xla")))
+    rel = abs(losses[0] - loss_cpu) / abs(loss_cpu)
+    check(rel <= 1e-3, f"step 1 loss {losses[0]} on the card vs {loss_cpu} on the CPU (rel {rel:.2e})")
+    print(f"  [{gpu}] train step {TRAIN_MODEL} f32, batch {TRAIN_BATCH}, world of 1 on nccl (dp=1, tp=1): losses "
+          f"{[round(x, 5) for x in losses]}; ms per step {[round(x, 1) for x in ms]} (host clock, step 1 includes "
+          f"first calls), peak {peak:.2f} GiB over what earlier phases hold (weights, AdamW state, activations); "
+          f"step 1 vs the CPU's plain forward of the same init: {loss_cpu:.6f}, rel "
+          f"{rel:.1e} (TF32 off; CPU forward {time.perf_counter() - t0:.1f} s); one bf16 step loss {loss16:.5f}; "
+          f"launches {counts}")
+    return counts
+
+
 def run() -> int:
     import torch
 
@@ -2178,7 +2495,7 @@ def run() -> int:
                                                        gpu)
 
         phase = "recall"
-        phase_recall(index, int8scan, originals, served)
+        truth = phase_recall(index, int8scan, originals, served)
 
         phase = "query times"
         k3_ms, k3_plain_ms, k3_err_served, k3_bound, k3_lib_ms = phase_query_times(
@@ -2225,10 +2542,32 @@ def run() -> int:
         mclip_counts = phase_mclip(int8_folder, kernels, gpu)
         print(f"  phase 'mclip' wall {time.perf_counter() - t0:.1f} s")
 
+        phase = "pod and slurm_worker ranks"
+        t0 = time.perf_counter()
+        pod_counts, slurm_counts = phase_ranks(gpu)
+        print(f"  phase 'pod and slurm_worker ranks' wall {time.perf_counter() - t0:.1f} s")
+
+        phase = "sharded IVF-int8"
+        t0 = time.perf_counter()
+        sharded_counts, sharded_p50 = phase_sharded_ivf(index, originals, truth, kernels, gpu)
+        print(f"  phase 'sharded IVF-int8' wall {time.perf_counter() - t0:.1f} s")
+
+        phase = "sharded flat_int8"
+        t0 = time.perf_counter()
+        flat_counts = phase_sharded_flat(index, originals, sample_ids, kernels, gpu)
+        print(f"  phase 'sharded flat_int8' wall {time.perf_counter() - t0:.1f} s")
+
+        phase = "train"
+        t0 = time.perf_counter()
+        train_counts = phase_train(kernels, gpu)
+        print(f"  phase 'train' wall {time.perf_counter() - t0:.1f} s")
+
         phase = "kernels line"
         paths = {"inference": inference_counts, "index": index_counts, "serving": served_counts, "sdpa": sdpa_counts,
                  "combine": combine_counts, "end2end": e2e_counts, "filter": filter_counts,
-                 "inference_rn50": rn_counts, "convert": convert_counts, "mclip": mclip_counts}
+                 "inference_rn50": rn_counts, "convert": convert_counts, "mclip": mclip_counts, "pod": pod_counts,
+                 "slurm_worker": slurm_counts, "sharded_ivf": sharded_counts, "sharded_flat": flat_counts,
+                 "train": train_counts}
 
         def by_path(key: str) -> dict:
             return {name: counts[key] for name, counts in paths.items()}
@@ -2263,6 +2602,7 @@ def run() -> int:
         line[0]["max_abs_err"] = max(line[0]["max_abs_err"], *(t[3] for t in k1_rn_text.values()))
         print(f"  RN50 / RN50x64 img/s: {rn_rates}; RN50 image tower device-time shares: {rn_shares}")
         line[3]["at_b1"] = k4["at_b1"]  # single-query worklists: nearly all of K4's launches
+        line[2]["sharded_search_p50_ms"] = {f"{t} {r} B={b}": v for (t, r, b), v in sharded_p50.items()}
     except Exception as e:  # every phase failure ends the run with its phase named
         import traceback
 

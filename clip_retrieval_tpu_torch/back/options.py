@@ -29,8 +29,8 @@ class ClipOptions:
     provide_aesthetic_embeddings: bool = True
     nprobe: Optional[int] = None  # override the index's stored nprobe
     rerank_factor: Optional[int] = None  # IVF-PQ refine over-fetch factor
-    # execute ivf_int8 indices on the list-sharded multi-chip tier (not
-    # ported; ROADMAP queue 1, item 8); None → CRT_SHARDED_IVF env decides
+    # execute ivf_int8 indices on the list-sharded tier, over every visible
+    # card when device is "cuda"; None → CRT_SHARDED_IVF env decides
     sharded_index: Optional[bool] = None
     device: str = "cuda"
 

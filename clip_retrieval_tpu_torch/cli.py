@@ -5,10 +5,10 @@ of a subcommand are the target function's parameters, so
 `clip-retrieval-tpu-torch inference --input_dataset d --output_folder o
 --clip_model ViT-L/14` calls `inference.main.main(...)` and
 `clip-retrieval-tpu-torch back --indices_paths p.json --device cpu` calls
-`back.app.clip_back(...)`.  The port has 11 of the JAX CLI's 12 subcommands:
+`back.app.clip_back(...)`.  The port has the JAX CLI's 12 subcommands:
 `inference`, `index`, `filter`, `back`, `front`, `end2end`, `index_combiner`,
-`parquet_to_arrow`, `inference.worker`, `convert` and `convert.nsfw_keras`
-(`inference.slurm_worker` is not ported yet).  Also runnable as
+`parquet_to_arrow`, `inference.worker`, `inference.slurm_worker`, `convert`
+and `convert.nsfw_keras`.  Also runnable as
 `python -m clip_retrieval_tpu_torch.cli ...`.
 """
 
@@ -69,6 +69,11 @@ def _lazy_commands() -> dict[str, Callable[[], Callable]]:
 
         return fn
 
+    def inference_slurm_worker():
+        from .inference.slurm import slurm_worker as fn
+
+        return fn
+
     def convert():
         from .models.convert import convert as fn
 
@@ -91,6 +96,7 @@ def _lazy_commands() -> dict[str, Callable[[], Callable]]:
         "index_combiner": index_combiner,
         "parquet_to_arrow": parquet_to_arrow,
         "inference.worker": inference_worker,
+        "inference.slurm_worker": inference_slurm_worker,
     }
 
 

@@ -150,7 +150,7 @@ def build_index_from_shards(
         s = np.empty((n,), np.float32)
         for start, block in shards.iter_chunks():
             q[start : start + block.shape[0]], s[start : start + block.shape[0]] = quantize_rows(block)
-        return ShardedFlatIndex(d, q, s, device=device)
+        return ShardedFlatIndex(d, q, s, devices=[device])
 
     t0 = time.time()
     sample = shards.sample(min(train_points, n), seed)

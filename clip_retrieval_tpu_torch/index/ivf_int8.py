@@ -141,6 +141,27 @@ def chunk_budget(chunk_counts: np.ndarray, n_lists: int) -> int:
     return min(nc, int(desc[:n_lists].sum()))
 
 
+def union_chunk_sel(per_q: np.ndarray, chunk_counts: np.ndarray, castarts: np.ndarray, pad_chunk: int,
+                    cap: int | None = None) -> tuple[np.ndarray, int]:
+    """Chunk indices of the actual probed union of one image (each probed
+    list expands to its contiguous chunk range), padded to `cap` (by default
+    the union's ¼-pow2 bucket) with the all-padding chunk `pad_chunk` (==
+    the image's real chunk count); arange(all chunks) when the cap reaches
+    the whole image.  Returns (selection, probed-union chunk count before
+    padding)."""
+    lists = np.unique(per_q.reshape(-1))
+    cc = chunk_counts[lists]
+    n = int(cc.sum())
+    cap = _quarter_pow2(max(n, 16)) if cap is None else cap
+    if cap >= pad_chunk:
+        return np.arange(pad_chunk, dtype=np.int32), n
+    sel = np.full((cap,), pad_chunk, np.int32)
+    ends = np.cumsum(cc)
+    intra = np.arange(n, dtype=np.int64) - np.repeat(ends - cc, cc)
+    sel[:n] = (np.repeat(castarts[lists], cc) + intra).astype(np.int32)
+    return sel, n
+
+
 def _readback(*tensors: torch.Tensor) -> list[np.ndarray]:
     """Copy tensors to the host in one device→host transfer."""
     if all(t.device.type == "cpu" for t in tensors):
@@ -426,21 +447,8 @@ class IVFInt8Index:
         return chunk_budget(self._chunk_counts, padded_b * p)
 
     def _union_chunk_sel(self, per_q: np.ndarray) -> np.ndarray:
-        """Chunk indices of the actual probed union (each probed list expands
-        to its contiguous chunk range), padded to a ¼-pow2 bucket with the
-        all-padding chunk; arange(all chunks) when the bucket would reach the
-        whole image."""
-        lists = np.unique(per_q.reshape(-1))
-        cc = self._chunk_counts[lists]
-        n = int(cc.sum())
-        self.last_union_chunks = n
-        cap = _quarter_pow2(max(n, 16))
-        if cap >= self._pad_chunk:  # pad_chunk == real chunk count
-            return np.arange(self._pad_chunk, dtype=np.int32)
-        sel = np.full((cap,), self._pad_chunk, np.int32)
-        ends = np.cumsum(cc)
-        intra = np.arange(n, dtype=np.int64) - np.repeat(ends - cc, cc)
-        sel[:n] = (np.repeat(self._castarts[lists], cc) + intra).astype(np.int32)
+        """`union_chunk_sel` over this index's image; records the union size."""
+        sel, self.last_union_chunks = union_chunk_sel(per_q, self._chunk_counts, self._castarts, self._pad_chunk)
         return sel
 
     def _search_int8(self, queries: np.ndarray, k: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -492,9 +500,13 @@ class IVFInt8Index:
                 self.overflow_redispatches += 1
                 u_cap = self._grow_device_cap(h["q"].shape[0], h["p"], n_union)
                 vals, ids, _ = _readback(*_search_device(h["q"], dv, h["k_dev"], h["p"], u_cap))
-        b, k = h["b"], h["k"]
+        return self._finish_ids(vals, ids, h["b"], h["k"])
+
+    def _finish_ids(self, vals: np.ndarray, pos: np.ndarray, b: int, k: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Host tail of a batch: drop the padding queries, map CSR positions
+        to vector ids, pad the columns to k."""
         vals = vals[:b]
-        ids = self._positions_to_ids(ids[:b])
+        ids = self._positions_to_ids(pos[:b])
         k_eff = vals.shape[1]
         if k_eff < k:
             vals = np.pad(vals, ((0, 0), (0, k - k_eff)), constant_values=-np.inf)

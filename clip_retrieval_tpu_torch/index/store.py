@@ -1,9 +1,9 @@
 """Index loading/dispatch on the index header's type.
 
-Counterpart of `clip_retrieval_tpu/index/store.py`.  The port serves `flat`,
-`flat_int8` (`ShardedFlatIndex` on one device), `ivf_int8` and `ivfpq`
-directories on one device; the list-sharded multi-chip IVF tier raises and
-names the ROADMAP item that ports it.
+Counterpart of `clip_retrieval_tpu/index/store.py`.  `flat`, `ivf_int8` and
+`ivfpq` directories load onto one device; `flat_int8` (`ShardedFlatIndex`)
+and, with `sharded`, `ivf_int8` (`ShardedIVFInt8Index`) shard over a list of
+devices.
 """
 
 from __future__ import annotations
@@ -11,6 +11,7 @@ from __future__ import annotations
 import json
 import logging
 import os
+from typing import Sequence
 
 import torch
 
@@ -19,17 +20,24 @@ from .flat import FlatIndex
 from .ivf_int8 import IVFInt8Index
 from .ivfpq import IVFPQIndex
 from .sharded_flat import ShardedFlatIndex
+from .sharded_ivf import ShardedIVFInt8Index
 
 LOGGER = logging.getLogger("clip_back")
 
 
 def load_index(path: str, enable_mmap: bool = True, sharded: bool | None = None,
-               device: str | torch.device = "cuda"):
-    """Load an index directory onto `device`; dispatches on header type.
+               device: str | torch.device = "cuda", devices: Sequence | None = None):
+    """Load an index directory; dispatches on header type.
 
-    `sharded=True` (or CRT_SHARDED_IVF=1) asks for the list-sharded
-    multi-chip IVF tier, which is not ported."""
+    `sharded=True` (or CRT_SHARDED_IVF=1) executes an ivf_int8 index on the
+    list-sharded tier (`sharded_ivf.py`) instead of one device; the on-disk
+    format is identical.  flat_int8 is always sharded.  The sharded tiers
+    lay their shards on `devices`; by default every visible CUDA device when
+    `device` is "cuda", else `device` alone.  The other tiers load onto
+    `device`."""
     device = resolve_device(device)
+    if devices is None and device != torch.device("cuda"):
+        devices = [device]
     header_path = os.path.join(path, "header.json")
     if not os.path.exists(header_path):
         raise FileNotFoundError(f"no index header at {header_path}")
@@ -56,13 +64,10 @@ def load_index(path: str, enable_mmap: bool = True, sharded: bool | None = None,
     if kind == "flat":
         return FlatIndex.load(path, mmap=enable_mmap, device=device)
     if kind == "flat_int8":
-        return ShardedFlatIndex.load(path, mmap=enable_mmap, device=device)
+        return ShardedFlatIndex.load(path, mmap=enable_mmap, devices=devices)
     if kind == "ivf_int8":
         if sharded:
-            raise NotImplementedError(
-                f"{path}: the list-sharded multi-chip IVF tier (index/sharded_ivf.py) is not ported yet "
-                "(ROADMAP queue 1, item 8); serve it unsharded"
-            )
+            return ShardedIVFInt8Index.load(path, mmap=enable_mmap, devices=devices)
         return IVFInt8Index.load(path, mmap=enable_mmap, device=device)
     if kind == "ivfpq":
         return IVFPQIndex.load(path, mmap=enable_mmap, device=device)

@@ -3,7 +3,8 @@
 Counterpart of `clip_retrieval_tpu/inference/main.py`: count samples, derive
 output_partition_count = ceil(samples / write_batch_size), brace-expand
 webdataset patterns, start the stats aggregator, hand tasks to a
-distributor.  Runs on one explicit device ("cuda" by default).
+distributor.  Runs on one explicit device ("cuda" by default); with the pod
+or slurm strategy, "cuda" is each rank's own card.
 """
 
 from __future__ import annotations
@@ -74,6 +75,15 @@ def main(
     wandb_project: str = "clip_retrieval",
     enable_wandb: bool = False,
     clip_cache_path: str | None = None,
+    slurm_job_name: str | None = None,
+    slurm_partition: str | None = None,
+    slurm_nodes: int | None = None,
+    slurm_job_comment: str | None = None,
+    slurm_nodelist: str | None = None,
+    slurm_exclude: str | None = None,
+    slurm_job_timeout: int | None = None,
+    slurm_cache_path: str | None = None,
+    slurm_verbose_wait: bool = False,
     device: str = "cuda",
 ):
     """Compute CLIP embeddings for a folder or webdataset corpus."""
@@ -119,6 +129,18 @@ def main(
         compute_dtype=compute_dtype,
         device=device,
     )
+    if distribution_strategy == "slurm":
+        worker_args.update(
+            slurm_job_name=slurm_job_name,
+            slurm_partition=slurm_partition,
+            slurm_nodes=slurm_nodes,
+            slurm_job_comment=slurm_job_comment,
+            slurm_nodelist=slurm_nodelist,
+            slurm_exclude=slurm_exclude,
+            slurm_job_timeout=slurm_job_timeout,
+            slurm_cache_path=slurm_cache_path,
+            slurm_verbose_wait=slurm_verbose_wait,
+        )
     distributor = make_distributor(distribution_strategy, list(range(output_partition_count)), worker_args)
 
     logger_reader = LoggerReader(

@@ -49,8 +49,11 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ w with w cast to x's dtype, accumulated and returned in f32
     (JAX's `preferred_element_type=float32`)."""
     w = w.to(x.dtype)
-    if x.is_cuda and x.dtype != torch.float32:
-        # cuBLAS writes the f32 accumulator out without rounding it to x's dtype
+    differentiable = torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)
+    if x.is_cuda and x.dtype != torch.float32 and not differentiable:
+        # cuBLAS writes the f32 accumulator out without rounding it to x's
+        # dtype (an `out_dtype` product; a train step takes the f32 product
+        # of the same operands below, which autograd differentiates)
         y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
         return y.reshape(*x.shape[:-1], w.shape[-1])
     return torch.matmul(x.float(), w.float())
@@ -101,13 +104,13 @@ class Block(nn.Module):
         self.ln_2 = LayerNorm(width, device)
         self.mlp = Mlp(width, mlp_dim, device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, attn_impl: str = "auto") -> torch.Tensor:
         y = self.ln_1(x, self.eps)
         a = self.attn
         q = _dense(y, a.wq, a.bq)
         k = _dense(y, a.wk, a.bk)
         v = _dense(y, a.wv, a.bv)
-        o = attn_ops.sdpa_packed(q, k, v, self.heads, causal=self.causal)
+        o = attn_ops.sdpa_packed(q, k, v, self.heads, causal=self.causal, impl=attn_impl)
         x = x + _dense(o, a.wo, a.bo)
         y = self.ln_2(x, self.eps)
         m = self.mlp
@@ -136,7 +139,7 @@ class VisionTransformer(nn.Module):
         self.ln_post = LayerNorm(w, device)
         self.proj = _param(w, cfg.embed_dim, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, attn_impl: str = "auto") -> torch.Tensor:
         """x: CLIP-normalized (B, H, W, 3) in the compute dtype → f32
         (B, embed_dim) features, not normalized."""
         cfg = self.cfg
@@ -149,7 +152,7 @@ class VisionTransformer(nn.Module):
         x = torch.cat([cls, x], dim=1) + self.pos_emb.to(x.dtype)
         x = self.ln_pre(x, cfg.layernorm_eps)
         for blk in self.blocks:
-            x = blk(x)
+            x = blk(x, attn_impl)
         x = self.ln_post(x[:, 0], cfg.layernorm_eps)
         return matmul_f32(x, self.proj)
 
@@ -165,13 +168,13 @@ class TextTransformer(nn.Module):
         self.ln_final = LayerNorm(tw, device)
         self.proj = _param(tw, cfg.embed_dim, device=device)
 
-    def forward(self, tokens: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, compute_dtype: torch.dtype, attn_impl: str = "auto") -> torch.Tensor:
         """tokens: (B, context_length) integer ids → f32 (B, embed_dim)
         features pooled at the EOT position argmax(tokens)."""
         x = self.token_emb[tokens].to(compute_dtype)
         x = x + self.pos_emb[: x.shape[1]].to(compute_dtype)
         for blk in self.blocks:
-            x = blk(x)
+            x = blk(x, attn_impl)
         x = self.ln_final(x, self.cfg.layernorm_eps)
         eot = torch.argmax(tokens, dim=-1)
         x = x[torch.arange(x.shape[0], device=x.device), eot]
@@ -270,17 +273,20 @@ def encode_image(
     *,
     normalize: bool = True,
     compute_dtype: torch.dtype = torch.float32,
+    attn_impl: str = "auto",
 ) -> torch.Tensor:
     """images: (B, H, W, 3) uint8 or CLIP-normalized float → f32
     (B, embed_dim), L2-normalized unless normalize=False.  The ViT and the
-    ResNet tower take the same normalized input (JAX `encode_image`)."""
+    ResNet tower take the same normalized input (JAX `encode_image`).
+    attn_impl: "auto" | "flash" → kernel K1 (no backward); "xla" → the plain
+    attention, differentiable (the JAX names; the ResNet tower ignores it)."""
     if images.dtype == torch.uint8:
         x = normalize_images(images, compute_dtype)
     elif images.dtype in (torch.float32, torch.bfloat16):
         x = images.to(compute_dtype)
     else:
         raise TypeError(f"bad image dtype {images.dtype}")
-    feats = model.visual(x)
+    feats = model.visual(x) if model.cfg.vision_kind == "resnet" else model.visual(x, attn_impl)
     return l2_normalize(feats) if normalize else feats
 
 
@@ -290,9 +296,25 @@ def encode_text(
     *,
     normalize: bool = True,
     compute_dtype: torch.dtype = torch.float32,
+    attn_impl: str = "auto",
 ) -> torch.Tensor:
     """tokens: (B, context_length) int → f32 (B, embed_dim), pooled at
-    argmax(tokens) (EOT has the largest id in the CLIP vocab)."""
-    feats = model.text(tokens.long(), compute_dtype)
+    argmax(tokens) (EOT has the largest id in the CLIP vocab).  attn_impl
+    as for `encode_image`."""
+    feats = model.text(tokens.long(), compute_dtype, attn_impl)
     return l2_normalize(feats) if normalize else feats
 
+
+def clip_forward(
+    model: CLIP,
+    images: torch.Tensor,
+    tokens: torch.Tensor,
+    *,
+    compute_dtype: torch.dtype = torch.float32,
+    attn_impl: str = "auto",
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Joint forward: (image features, text features, exp(logit_scale)),
+    the features L2-normalized (JAX `clip_forward`)."""
+    img = encode_image(model, images, compute_dtype=compute_dtype, attn_impl=attn_impl)
+    txt = encode_text(model, tokens, compute_dtype=compute_dtype, attn_impl=attn_impl)
+    return img, txt, model.logit_scale.exp()

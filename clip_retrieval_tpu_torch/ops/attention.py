@@ -1,10 +1,11 @@
 """Scaled-dot-product attention for the CLIP towers.
 
 Counterpart of `clip_retrieval_tpu/ops/attention.py`.  The model's blocks
-call `sdpa_packed` on the packed (B, S, W) projection layout; it goes to
-kernel K1 (`flash.flash_attention_packed`).  The unpacked (B, H, S, dh)
-entry `sdpa` goes to kernel K2 (`flash.flash_attention`) for impl 'auto' and
-'flash'.  Each kernel wrapper launches the CUDA kernel for CUDA tensors and
+call `sdpa_packed` on the packed (B, S, W) projection layout; for impl
+'auto' and 'flash' it goes to kernel K1 (`flash.flash_attention_packed`),
+for 'xla' to the plain attention (the train step's route).  The unpacked
+(B, H, S, dh) entry `sdpa` goes to kernel K2 (`flash.flash_attention`) for
+impl 'auto' and 'flash'.  Each kernel wrapper launches the CUDA kernel for CUDA tensors and
 runs the plain math for CPU tensors.  There is no environment switch and no
 fallback between the two.  (The JAX package's 'auto' took 'xla_bf16' on the
 TPU because its K2 lost there; no H100 measurement says the same, so 'auto'
@@ -73,7 +74,17 @@ def sdpa_packed(
     heads: int,
     *,
     causal: bool = False,
+    impl: str = "auto",
 ) -> torch.Tensor:
-    """Attention on the packed (B, S, W) projection layout, W = heads·dh:
-    kernel K1 on CUDA tensors, its plain version on CPU tensors."""
-    return flash.flash_attention_packed(q, k, v, heads, causal=causal)
+    """Attention on the packed (B, S, W) projection layout, W = heads·dh.
+
+    impl: 'auto' | 'flash' → kernel K1 on CUDA tensors, its plain version
+    on CPU tensors; 'xla' | 'xla_bf16' → the head split, `sdpa_reference`
+    and the merge, in plain PyTorch that autograd differentiates (the
+    route a train step takes: K1 has no backward)."""
+    if impl in ("auto", "flash"):
+        return flash.flash_attention_packed(q, k, v, heads, causal=causal)
+    b, s, w = q.shape
+    split = lambda x: x.reshape(b, -1, heads, w // heads).transpose(1, 2)  # noqa: E731
+    o = sdpa(split(q), split(k), split(v), causal=causal, impl=impl)
+    return o.transpose(1, 2).reshape(b, s, w)

@@ -68,6 +68,14 @@ def build() -> None:
     _lib()
 
 
+def _refuse_autograd(name: str, *tensors: torch.Tensor) -> None:
+    """The kernel has no backward, so a differentiable call would return a
+    result with no gradient; refuse it (the plain route is `sdpa_packed` /
+    `sdpa` with impl='xla')."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} has no backward: an input requires grad; use impl='xla' to train")
+
+
 def flash_attention_packed(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, *, causal: bool = False
 ) -> torch.Tensor:
@@ -76,7 +84,9 @@ def flash_attention_packed(
     in q's dtype.
 
     CUDA tensors: bf16 or f32, contiguous, equal shapes, dh ≤ 128; anything
-    else raises.  CPU tensors: the plain reference."""
+    else raises.  CPU tensors: the plain reference.  Either raises when an
+    input requires grad under grad mode: the kernel has no backward."""
+    _refuse_autograd("flash_attention_packed", q, k, v)
     devices = {q.device, k.device, v.device}
     if len(devices) != 1:
         raise ValueError(f"q, k, v on different devices: {sorted(map(str, devices))}")
@@ -137,7 +147,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     (B, H, Sk, dh).  Returns (B, H, Sq, dh) in q's dtype.
 
     CUDA tensors: bf16 or f32, contiguous, dh ≤ 128; anything else raises.
-    CPU tensors: the plain reference."""
+    CPU tensors: the plain reference.  Either raises when an input requires
+    grad under grad mode: the kernel has no backward."""
+    _refuse_autograd("flash_attention", q, k, v)
     devices = {q.device, k.device, v.device}
     if len(devices) != 1:
         raise ValueError(f"q, k, v on different devices: {sorted(map(str, devices))}")

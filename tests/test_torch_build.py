@@ -161,7 +161,7 @@ def test_sharded_flat_matches_jax_exact_topk(corpus):
     q = _unit(np.random.default_rng(1).normal(size=(6, D)))
     jx = JSF.from_vectors(xf)
     jx.exact_topk = True
-    tx = TSF.from_vectors(xf, device="cpu")
+    tx = TSF.from_vectors(xf, devices=["cpu"])
     np.testing.assert_array_equal(tx.q_vectors, jx.q_vectors)
     got, want = tx.search(q, 10), jx.search(q, 10)
     np.testing.assert_array_equal(got[1], want[1])
@@ -179,9 +179,9 @@ def test_sharded_flat_scans_in_blocks(corpus, monkeypatch):
 
     _, x = corpus
     q = x[:3].astype(np.float32)
-    whole = TSF.from_vectors(x.astype(np.float32), device="cpu").search(q, 7)
+    whole = TSF.from_vectors(x.astype(np.float32), devices=["cpu"]).search(q, 7)
     monkeypatch.setattr(sharded_flat, "BLOCK_ROWS", 700)
-    blocked = TSF.from_vectors(x.astype(np.float32), device="cpu").search(q, 7)
+    blocked = TSF.from_vectors(x.astype(np.float32), devices=["cpu"]).search(q, 7)
     np.testing.assert_array_equal(blocked[1], whole[1])
 
 

@@ -42,7 +42,7 @@ from tests.test_torch_pipeline import checkpoint  # noqa: F401  (module fixture)
 D = 32  # the checkpoint's embed dim
 DIST_ATOL = 1e-4
 SUBCOMMANDS = ["inference", "index", "filter", "back", "front", "end2end", "index_combiner", "parquet_to_arrow",
-               "inference.worker", "convert", "convert.nsfw_keras"]
+               "inference.worker", "inference.slurm_worker", "convert", "convert.nsfw_keras"]
 
 
 def _unit(x):
@@ -231,6 +231,12 @@ def test_help_lists_the_ported_subcommands(capsys):
     assert "{" + ",".join(sorted(SUBCOMMANDS)) + "}" in out
 
 
+def test_cli_has_the_jax_cli_subcommands():
+    from clip_retrieval_tpu import cli as jax_cli
+
+    assert sorted(cli._lazy_commands()) == sorted(jax_cli._lazy_commands()) == sorted(SUBCOMMANDS)
+
+
 @pytest.mark.parametrize("command", SUBCOMMANDS)
 def test_subcommand_parses_help(command, capsys):
     with pytest.raises(SystemExit) as exc:
@@ -254,17 +260,16 @@ def test_inference_accepts_use_jit_and_clip_cache_path(tmp_path, capsys):
 ENTRY_POINTS = [("inference.main", "main"), ("index.build", "clip_index"), ("back.app", "clip_back"),
                 ("index.combiner", "index_combiner"), ("back.prepro", "parquet_to_arrow"), ("front", "clip_front"),
                 ("filter", "clip_filter"), ("end2end", "clip_end2end"), ("models.convert", "convert"),
-                ("models.convert", "convert_keras_nsfw")]
+                ("models.convert", "convert_keras_nsfw"), ("inference.slurm", "slurm_worker")]
 
 
 @pytest.mark.parametrize("module,name", ENTRY_POINTS, ids=[f"{m}.{n}" for m, n in ENTRY_POINTS])
 def test_entry_point_parameters_match_jax(module, name):
-    """Names, order and defaults equal the JAX function's; `device` is the
-    only extra, and `slurm_*` (scale-out, ROADMAP queue 1 item 8) the only
-    parameters not ported."""
+    """Names, order and defaults equal the JAX function's, `slurm_*`
+    included; `device` is the only extra."""
     j = inspect.signature(getattr(importlib.import_module(f"clip_retrieval_tpu.{module}"), name)).parameters
     t = inspect.signature(getattr(importlib.import_module(f"clip_retrieval_tpu_torch.{module}"), name)).parameters
-    want = [(k, p.default) for k, p in j.items() if not k.startswith("slurm_") and p.kind != p.VAR_KEYWORD]
+    want = [(k, p.default) for k, p in j.items() if p.kind != p.VAR_KEYWORD]
     assert [(k, p.default) for k, p in t.items() if k != "device"] == want
     if "device" in t:
         assert list(t)[-1] == "device" and t["device"].default == "cuda"

@@ -15,6 +15,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -289,8 +290,70 @@ def test_cli_inference_on_cpu(tmp_path):
 
 @pytest.mark.parametrize("strategy", ["pod", "slurm", "pyspark"])
 def test_unported_distributors_name_the_roadmap(strategy):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_distributor(strategy, [0], {})
+    """Every strategy is ported now: make_distributor builds its class
+    without importing pyspark or touching slurm."""
+    from clip_retrieval_tpu_torch.inference import distributor, slurm
+
+    want = {"pod": distributor.PodDistributor, "slurm": slurm.SlurmDistributor,
+            "pyspark": distributor.PysparkDistributor}[strategy]
+    assert type(make_distributor(strategy, [0], {})) is want
+
+
+# the modules of slice 6 (scale-out: distributors, sharded tiers, the train step)
+SLICE6 = ["clip_retrieval_tpu_torch.parallel.dist", "clip_retrieval_tpu_torch.parallel.train",
+          "clip_retrieval_tpu_torch.inference.distributor", "clip_retrieval_tpu_torch.inference.slurm",
+          "clip_retrieval_tpu_torch.inference.slurm_worker", "clip_retrieval_tpu_torch.index.sharded_ivf",
+          "clip_retrieval_tpu_torch.index.sharded_flat", "clip_retrieval_tpu_torch.index.store",
+          "clip_retrieval_tpu_torch.tools.scale_out"]
+
+
+@pytest.mark.parametrize("module", SLICE6)
+def test_slice6_sources_import_neither_jax_nor_the_jax_package(module):
+    text = (ROOT / (module.replace(".", "/") + ".py")).read_text()
+    assert not re.search(r"^\s*(import jax|from jax)", text, re.M)
+    assert not re.search(r"^\s*(from|import)\s+(clip_retrieval_tpu|optax)(\.|\s|$)", text, re.M)
+    assert not re.search(r"^(from|import)\s+pyspark\b", text, re.M)  # only inside the Spark distributor's call
+
+
+def test_importing_the_slice6_modules_leaves_both_out():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {SLICE6!r}: importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'clip_retrieval_tpu', "
+        "'optax', 'pyspark'))\n"
+        "print('OK' if not bad else 'BAD ' + ' '.join(bad[:5]))\n"
+    )
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("OK"), proc.stdout
+
+
+def test_scale_out_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    """The sharded tiers' default devices (every visible card), the train
+    step and the pod ranks raise without a GPU, before any work."""
+    from clip_retrieval_tpu_torch.index.sharded_flat import ShardedFlatIndex
+    from clip_retrieval_tpu_torch.index.sharded_ivf import ShardedIVFInt8Index
+    from clip_retrieval_tpu_torch.models.configs import TEST_TINY
+    from clip_retrieval_tpu_torch.parallel.train import make_train_step
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ivf = lambda **kw: ShardedIVFInt8Index(4, np.zeros((2, 4), np.float32), np.zeros(3, np.int64),  # noqa: E731
+                                           np.zeros(0, np.int64), np.zeros((0, 4), np.int8), np.zeros(0, np.float32),
+                                           **kw)
+    for call in (lambda: ShardedFlatIndex(4, np.zeros((1, 4), np.int8), np.ones(1, np.float32)),
+                 lambda: ShardedIVFInt8Index.from_vectors(np.eye(4, dtype=np.float32), 2),
+                 lambda: ivf(), lambda: ivf(devices=["cpu", "cuda"]),
+                 lambda: make_train_step(TEST_TINY)):
+        with pytest.raises(RuntimeError, match="is_available"):
+            call()
+    assert ivf(devices=["cpu", "cpu"]).devices == [torch.device("cpu")] * 2
+    dataset = make_files_corpus(str(tmp_path / "c"), n=2)
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(RuntimeError, match="is_available"):
+        torch_inference(input_dataset=dataset, output_folder=str(tmp_path / "out"), clip_model="test-tiny",
+                        distribution_strategy="pod")
+    assert not (tmp_path / "out").exists()
 
 
 def test_chip_smoke_refuses_without_cuda():

@@ -11,7 +11,6 @@ range_search and the exact re-rank must give identical ids, and scores within
 """
 
 import json
-import os
 
 import numpy as np
 import pytest
@@ -211,21 +210,19 @@ def test_empty_index_and_unported_builders(saved, corpus):
 
 @pytest.mark.parametrize("kind,sharded", [("flat_int8", False), ("ivfpq", False), ("ivf_int8", True)])
 def test_load_index_names_the_roadmap_for_unported_tiers(tmp_path, kind, sharded):
-    """The sharded IVF tier still names its ROADMAP item; flat_int8 and ivfpq
-    are ported now and load as their classes."""
+    """Every tier is ported now: flat_int8, ivfpq and the list-sharded IVF
+    tier (`sharded=True`) load as their classes."""
     from clip_retrieval_tpu_torch.index.ivfpq import IVFPQIndex
     from clip_retrieval_tpu_torch.index.sharded_flat import ShardedFlatIndex
+    from clip_retrieval_tpu_torch.index.sharded_ivf import ShardedIVFInt8Index
 
     path = str(tmp_path / "ix")
     if kind == "ivf_int8":
-        os.makedirs(path)
-        with open(os.path.join(path, "header.json"), "w") as f:
-            json.dump({"type": kind, "d": D}, f)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            load_index(path, sharded=sharded, device="cpu")
-        return
-    if kind == "flat_int8":
-        ShardedFlatIndex.from_vectors(np.eye(D, dtype=np.float32), device="cpu").save(path)
+        TIVF(D, np.eye(2, D, dtype=np.float32), np.array([0, 1, 1]), np.array([5]), np.eye(1, D, dtype=np.int8),
+             np.ones(1, np.float32), device="cpu").save(path)
+        want = ShardedIVFInt8Index
+    elif kind == "flat_int8":
+        ShardedFlatIndex.from_vectors(np.eye(D, dtype=np.float32), devices=["cpu"]).save(path)
         want = ShardedFlatIndex
     else:
         IVFPQIndex(D, np.eye(2, D, dtype=np.float32), np.zeros((4, 256, D // 4), np.float32), None,
