@@ -42,7 +42,12 @@ model families' published widths:
   merged, held to the whole-corpus build, mapped to IVF order
   (`get_old_to_new_mapping`, `search_to_new_ids`) and served by `back` as a
   third index; `parquet_to_arrow` over the corpus's 1M metadata rows;
-- the entry points on ported code: `clip_end2end` over the 512 samples
+- the public surface: the package-level API (`clip_inference`,
+  `clip_index`, `clip_back`, `clip_filter`, `clip_end2end`, `ClipClient`,
+  `Modality`) resolves to the port's objects, and `resize_on_device` over
+  32 uint8 480x640 images to 224 on the card is held to the CPU and timed;
+- the entry points on ported code: `clip_end2end` over the 512 samples,
+  called by its top-level name `clip_retrieval_tpu_torch.clip_end2end`
   (inference, index, an in-process `back` app), `clip_filter` on its index
   (threshold and image-file queries) and on pq1m, and `ClipClient` against
   the running `back`, compared with raw HTTP;
@@ -82,7 +87,7 @@ device, build, K1 vs plain, K3 vs plain, K2 vs plain, K4 vs plain, main
 path, tower parity, times, sdpa path, K1 at the ResNet text shapes, RN50
 main path, RN tower parity, convert, index build, combine IVF-int8 build,
 index, served path, recall, query times, IVF-PQ checks, combine IVF-PQ,
-combine IVF-int8, arrow, end2end, filter, client, mclip, pod and
+combine IVF-int8, arrow, surface, end2end, filter, client, mclip, pod and
 slurm_worker ranks, sharded IVF-int8, sharded flat_int8, train.  Kernel launch
 counts are set to 0 just before each path and read just after it.  The line before the
 last is a JSON object describing each kernel; the last line is `{"ok":
@@ -154,6 +159,12 @@ MCLIP_QUERIES = ["une photo d'un chat sur un canapé", "ein Foto von einem Hund 
 # slice 6: the sharded tiers' shards (all on the one card: cuda:0 four times), the rank runs' partitions, and the
 # train step's model and batch (ViT-B/32 at full width and depth)
 SHARDS, RANK_PARTITIONS, TRAIN_MODEL, TRAIN_BATCH = 4, 4, "ViT-B/32", 128
+# slice 7: the package-level API (name -> module, attribute) and the batched resize on the card
+SURFACE_API = {"clip_inference": ("inference.main", "main"), "clip_index": ("index.build", "clip_index"),
+               "clip_back": ("back.app", "clip_back"), "clip_filter": ("filter", "clip_filter"),
+               "clip_end2end": ("end2end", "clip_end2end"), "ClipClient": ("client", "ClipClient"),
+               "Modality": ("client", "Modality")}
+RESIZE_BATCH, RESIZE_FROM, RESIZE_TO, RESIZE_ATOL = 32, (480, 640), 224, 2e-5
 # the card's published peaks (H100 SXM data sheet): HBM bytes/s, dense bf16 FLOP/s, SMs
 HBM_BPS, BF16_FLOPS, SMS = 3.35e12, 989e12, 132
 
@@ -1625,6 +1636,39 @@ def phase_combine_int8(folder: str, whole, pq_rows, pq_ids, port: int, kernels: 
     return counts
 
 
+def phase_surface(gpu: str):
+    """The package-level API resolves to the port's own objects, and
+    `resize_on_device` on the card over 32 seeded uint8 480x640 images to
+    224 is held to the same call on the CPU (atol 2e-5) and timed with CUDA
+    events."""
+    import torch
+
+    import clip_retrieval_tpu_torch as port
+    from clip_retrieval_tpu_torch.models.preprocess import resize_on_device
+
+    for name, (module, attr) in SURFACE_API.items():
+        obj = getattr(port, name)
+        check(obj is getattr(importlib.import_module(f"clip_retrieval_tpu_torch.{module}"), attr),
+              f"clip_retrieval_tpu_torch.{name} is not {module}.{attr}")
+    check(port.__version__ == "0.1.0", f"__version__ {port.__version__!r}")
+    images = np.random.default_rng(21).integers(0, 256, (RESIZE_BATCH, *RESIZE_FROM, 3), dtype=np.uint8)
+    on_card = resize_on_device(images, RESIZE_TO)  # a numpy array goes to the default device, the card
+    check(on_card.device.type == "cuda" and on_card.dtype == torch.float32
+          and tuple(on_card.shape) == (RESIZE_BATCH, RESIZE_TO, RESIZE_TO, 3), f"resize_on_device {on_card.shape}")
+    err = (on_card.cpu() - resize_on_device(torch.from_numpy(images), RESIZE_TO)).abs().max().item()
+    check(err <= RESIZE_ATOL, f"resize_on_device on the card vs the CPU: max abs {err:.3e} > {RESIZE_ATOL}")
+    x = torch.from_numpy(images).cuda()
+    for _ in range(3):
+        resize_on_device(x, RESIZE_TO)
+    ms = cuda_ms(lambda: resize_on_device(x, RESIZE_TO), 20)
+    moved = images.nbytes + on_card.numel() * 4  # uint8 in read once, f32 out written once
+    bound = moved / HBM_BPS * 1e3
+    print(f"  [{gpu}] surface: {len(SURFACE_API)} top-level names and __version__ resolve to the port's objects; "
+          f"resize_on_device {RESIZE_BATCH}x{RESIZE_FROM[0]}x{RESIZE_FROM[1]} uint8 -> {RESIZE_TO}: max abs vs the "
+          f"CPU {err:.3e} (bar {RESIZE_ATOL}), {ms:.4f} ms on the card (CUDA events, 20 calls; byte bound "
+          f"{bound:.4f} ms)")
+
+
 def phase_arrow(pq_corpus: str, pq_ids, gpu: str):
     """`parquet_to_arrow` over the pq1m corpus's 1M-row metadata; the arrow
     provider's rows for the queried ids equal the parquet provider's."""
@@ -1663,10 +1707,10 @@ def phase_end2end(kernels: dict, gpu: str) -> tuple[str, dict]:
     Returns (output folder, launch counts)."""
     import torch
 
+    from clip_retrieval_tpu_torch import clip_end2end  # the package-level API, as a user calls it
     from clip_retrieval_tpu_torch.back.app import make_app
     from clip_retrieval_tpu_torch.back.options import ClipOptions
     from clip_retrieval_tpu_torch.back.resources import load_clip_indices
-    from clip_retrieval_tpu_torch.end2end import clip_end2end
 
     out = os.path.join(WORK_DIR, "e2e")
     zero_counts(kernels)
@@ -2521,6 +2565,11 @@ def run() -> int:
         t0 = time.perf_counter()
         phase_arrow(corpus, pq_ids, gpu)
         print(f"  phase 'arrow' wall {time.perf_counter() - t0:.1f} s")
+
+        phase = "surface"
+        t0 = time.perf_counter()
+        phase_surface(gpu)
+        print(f"  phase 'surface' wall {time.perf_counter() - t0:.1f} s")
 
         phase = "end2end"
         t0 = time.perf_counter()

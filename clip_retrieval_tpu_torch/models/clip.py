@@ -318,3 +318,11 @@ def clip_forward(
     img = encode_image(model, images, compute_dtype=compute_dtype, attn_impl=attn_impl)
     txt = encode_text(model, tokens, compute_dtype=compute_dtype, attn_impl=attn_impl)
     return img, txt, model.logit_scale.exp()
+
+
+def count_params(model: nn.Module) -> int:
+    """The number of parameter elements (JAX `count_params` over the param
+    tree).  A ResNet tower counts what the JAX tree holds: each BatchNorm is
+    folded into its convolution's scale and bias at load in both packages,
+    and neither keeps the checkpoint's running statistics."""
+    return sum(p.numel() for p in model.parameters())

@@ -1,6 +1,7 @@
-"""Host image preprocessing: decode, bicubic resize, center crop → uint8 HWC.
+"""Host image preprocessing: decode, bicubic resize, center crop → uint8 HWC,
+and the batched bicubic resize on the device.
 
-Counterpart of `clip_retrieval_tpu/models/preprocess.py` (host side).  It
+Counterpart of `clip_retrieval_tpu/models/preprocess.py`.  The host side
 drives the port's copy of the C++ decoder (`native/image_decode.cpp`), with
 PIL as the fallback for what that decoder rejects or where it
 cannot be built.  Normalization happens on the device inside
@@ -14,8 +15,11 @@ import os
 from typing import Sequence
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
 from ..native import get_decode_lib
+from ..utils.device import resolve_device
 
 try:
     from PIL import Image
@@ -96,3 +100,23 @@ def decode_batch(items: Sequence[bytes], size: int, *, fast: bool = False) -> tu
     if not rows:
         return np.zeros((0, size, size, 3), np.uint8), []
     return np.stack(rows), kept
+
+
+def resize_on_device(images, size: int, device: str | torch.device = "cuda") -> torch.Tensor:
+    """Batched bicubic resize: (B, H, W, 3) uint8 or float → (B, size, size,
+    3) float32, uint8 divided by 255 (not clamped).  A tensor stays where it
+    lies; a numpy array goes to `device`.
+
+    Computes what `jax.image.resize(x, (B, size, size, 3), "bicubic")`
+    does: the Keys kernel at a = -0.5, widened by the scale when
+    downsampling, with the weights renormalised at the borders.  That is
+    `F.interpolate`'s antialiased bicubic; without `antialias=True` it takes
+    a = -0.75 and clamps indices instead."""
+    x = images
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.ascontiguousarray(x)).to(resolve_device(device))
+    y = x.float()
+    if x.dtype == torch.uint8:
+        y = y / 255.0
+    y = F.interpolate(y.permute(0, 3, 1, 2), size=(size, size), mode="bicubic", align_corners=False, antialias=True)
+    return y.permute(0, 2, 3, 1).contiguous()

@@ -1,1 +1,3 @@
 """Small helpers shared by the port's entry points."""
+
+from .braces import braceexpand  # noqa: F401

@@ -77,6 +77,11 @@ def pair(request):
     return cfg, params, tloaders.from_jax_params(_numpy_tree(params), cfg, device="cpu")
 
 
+def test_count_params_matches_jax(pair):
+    cfg, params, model = pair
+    assert tclip.count_params(model) == jclip.count_params(params)
+
+
 def test_encode_image_matches_jax(pair):
     cfg, params, model = pair
     images = _images(cfg)

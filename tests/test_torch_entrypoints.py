@@ -263,16 +263,23 @@ ENTRY_POINTS = [("inference.main", "main"), ("index.build", "clip_index"), ("bac
                 ("models.convert", "convert_keras_nsfw"), ("inference.slurm", "slurm_worker")]
 
 
-@pytest.mark.parametrize("module,name", ENTRY_POINTS, ids=[f"{m}.{n}" for m, n in ENTRY_POINTS])
-def test_entry_point_parameters_match_jax(module, name):
-    """Names, order and defaults equal the JAX function's, `slurm_*`
-    included; `device` is the only extra."""
-    j = inspect.signature(getattr(importlib.import_module(f"clip_retrieval_tpu.{module}"), name)).parameters
-    t = inspect.signature(getattr(importlib.import_module(f"clip_retrieval_tpu_torch.{module}"), name)).parameters
+def assert_parameters_match(jax_fn, torch_fn):
+    """Names, order and defaults of `torch_fn`'s parameters equal
+    `jax_fn`'s; `device`, last and defaulting to "cuda", is the only extra."""
+    j = inspect.signature(jax_fn).parameters
+    t = inspect.signature(torch_fn).parameters
     want = [(k, p.default) for k, p in j.items() if p.kind != p.VAR_KEYWORD]
     assert [(k, p.default) for k, p in t.items() if k != "device"] == want
     if "device" in t:
         assert list(t)[-1] == "device" and t["device"].default == "cuda"
+
+
+@pytest.mark.parametrize("module,name", ENTRY_POINTS, ids=[f"{m}.{n}" for m, n in ENTRY_POINTS])
+def test_entry_point_parameters_match_jax(module, name):
+    """Names, order and defaults equal the JAX function's, `slurm_*`
+    included; `device` is the only extra."""
+    assert_parameters_match(getattr(importlib.import_module(f"clip_retrieval_tpu.{module}"), name),
+                            getattr(importlib.import_module(f"clip_retrieval_tpu_torch.{module}"), name))
 
 
 def test_clip_client_fields_match_jax():

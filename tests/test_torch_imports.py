@@ -137,6 +137,30 @@ def test_importing_the_port_loads_no_optional_package():
     assert proc.stdout.strip().endswith("OK"), proc.stdout
 
 
+@pytest.mark.parametrize("module", ["clip_retrieval_tpu_torch", "clip_retrieval_tpu_torch.index",
+                                    "clip_retrieval_tpu_torch.models"])
+def test_importing_the_package_and_its_api_subpackages_stays_light(module):
+    """The package-level API and the index re-exports resolve lazily: the
+    package loads no torch and `.index` none of its modules.  None of the
+    three loads jax, the JAX package or an optional package, or touches
+    CUDA."""
+    banned = OPTIONAL + ("jax", "jaxlib", "clip_retrieval_tpu")
+    code = (
+        f"import sys, {module}\n"
+        f"bad = sorted(k for k in sys.modules if k.split('.')[0] in {banned!r})\n"
+        "torch = sys.modules.get('torch')\n"
+        "if torch is not None and torch.cuda.is_initialized(): bad.append('CUDA')\n"
+        "port = sorted(k for k in sys.modules if k.startswith('clip_retrieval_tpu_torch'))\n"
+        "print('OK' if not bad else 'LOADED ' + ' '.join(bad[:5]), 'torch' in sys.modules, port)\n"
+    )
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    verdict, torch_loaded, port = proc.stdout.strip().split(" ", 2)
+    assert verdict == "OK", proc.stdout
+    if module != "clip_retrieval_tpu_torch.models":
+        assert torch_loaded == "False" and port == repr(sorted({"clip_retrieval_tpu_torch", module}))
+
+
 def test_new_entry_points_default_to_cuda(monkeypatch, tmp_path):
     """`filter`, `end2end` and `index_combiner` raise on their default
     device without a GPU, before any work; `parquet_to_arrow`, `clip_front`
@@ -227,6 +251,7 @@ def test_model_init_and_safety_loaders_default_to_cuda(monkeypatch, tmp_path):
     from clip_retrieval_tpu_torch.models import safety
     from clip_retrieval_tpu_torch.models.clip import init_clip
     from clip_retrieval_tpu_torch.models.configs import TEST_TINY
+    from clip_retrieval_tpu_torch.models.preprocess import resize_on_device
 
     monkeypatch.setenv("HOME", str(tmp_path))
     path = str(tmp_path / "nsfw_mlp.npz")
@@ -238,10 +263,12 @@ def test_model_init_and_safety_loaders_default_to_cuda(monkeypatch, tmp_path):
         lambda: safety.MLP.random(4),
         lambda: safety.load_safety_model("ViT-L/14"),
         lambda: safety.load_mlp_npz(path),
+        lambda: resize_on_device(np.zeros((1, 4, 4, 3), np.uint8), 2),
     ):
         with pytest.raises(RuntimeError, match="is_available"):
             call()
     assert safety.load_mlp_npz(path, device="cpu").device.type == "cpu"
+    assert resize_on_device(np.zeros((1, 4, 4, 3), np.uint8), 2, device="cpu").device.type == "cpu"
 
 
 @pytest.mark.parametrize("loader", ["from_jax_params", "convert_hf_state_dict", "convert_openai_state_dict",

@@ -156,6 +156,20 @@ def test_full_state_dict_through_both_convert_state_dict():
     np.testing.assert_allclose(np.linalg.norm(img, axis=1), 1.0, atol=1e-5)
 
 
+def test_count_params_matches_jax_with_bn_folded():
+    """BN is folded into each conv's scale and bias in both trees, so the
+    counts differ by exactly 0, on `init_clip`'s weights and on an openai
+    checkpoint whose BN statistics neither package keeps."""
+    for cfg in (TEST_TINY_RN, TINY2):
+        params = jclip.init_clip(cfg, 3)
+        model = tloaders.from_jax_params(jax.tree.map(np.asarray, params), cfg, device="cpu")
+        assert tclip.count_params(model) - jclip.count_params(params) == 0
+    sd = full_rn_state_dict(TINY2)
+    model = tloaders.convert_state_dict(sd, TINY2, device="cpu")
+    assert tclip.count_params(model) - jclip.count_params(jloaders.convert_state_dict(sd, TINY2)) == 0
+    assert tclip.count_params(model) < sum(v.numel() for v in sd.values())  # the running stats are gone
+
+
 def test_fold_conv_bn_matches_batchnorm():
     """The folded conv equals conv → BatchNorm (eval) on the same input."""
     cfg = TINY2
