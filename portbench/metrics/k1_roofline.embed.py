@@ -1,0 +1,13 @@
+"""Kernel K1's share of its roofline over the embedding window, in %: the
+summed least time of every recorded launch (`kernels/k1.py`) over K1's
+device time in the trace."""
+
+import sys
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from bench import readers  # noqa: E402
+
+
+def read(ctx):
+    return readers.roofline(ctx, "k1")
