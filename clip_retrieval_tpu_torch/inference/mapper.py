@@ -18,10 +18,16 @@ with "image_tensor" (uint8 HWC) / "text_tokens" → output dict with
 - With `use_mclip`, the text embeddings come from the M-CLIP encoder in
   `mclip_model` (`models/mclip.py`), on the same device, from the raw
   captions; the images still go through the CLIP tower.
+- Each call records two spans (`utils/trace.py`): `mapper.enqueue`, from
+  the call's start until both towers are queued on the device, with the
+  thread's CPU ns in it (`cpu_ns`: below its wall time, the thread waited
+  for the interpreter lock or a core), and `mapper.readback`, the
+  embeddings' read-back to the host.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any
 
 import numpy as np
@@ -29,6 +35,7 @@ import torch
 
 from ..models import clip as tclip
 from ..models import zoo
+from ..utils import trace
 from ..utils.device import resolve_device
 from .staging import STAGED_KEY
 
@@ -99,28 +106,34 @@ class ClipMapper:
         staged_n = batch.get(STAGED_KEY)
         img = txt = None
         # queue both towers on the device before reading either back
-        if self.enable_image:
-            images = batch["image_tensor"]
-            if staged_n is None:
-                arr, n = self.pad_batch(images)
-                img = self.embed_images(self.to_device(arr))[:n]
-            else:
-                img = self.embed_images(images)[:staged_n]
-        if self.enable_text and self.mclip is not None:
-            out["text_embs"] = self.mclip(batch["text"])
-            out["text"] = batch["text"]
-        elif self.enable_text:
-            tokens = batch["text_tokens"]
-            if staged_n is None:
-                arr, n = self.pad_batch(tokens.astype(np.int32))
-                txt = self.embed_texts(self.to_device(arr))[:n]
-            else:
-                txt = self.embed_texts(tokens)[:staged_n]
+        with trace.span("mapper.enqueue") as enqueue:
+            cpu_ns = time.thread_time_ns()
+            if self.enable_image:
+                images = batch["image_tensor"]
+                if staged_n is None:
+                    arr, n = self.pad_batch(images)
+                    img = self.embed_images(self.to_device(arr))[:n]
+                else:
+                    img = self.embed_images(images)[:staged_n]
+            if self.enable_text and self.mclip is not None:
+                out["text_embs"] = self.mclip(batch["text"])
+                out["text"] = batch["text"]
+            elif self.enable_text:
+                tokens = batch["text_tokens"]
+                if staged_n is None:
+                    arr, n = self.pad_batch(tokens.astype(np.int32))
+                    txt = self.embed_texts(self.to_device(arr))[:n]
+                else:
+                    txt = self.embed_texts(tokens)[:staged_n]
+            enqueue.count(cpu_ns=time.thread_time_ns() - cpu_ns)
+        with trace.span("mapper.readback"):
+            if img is not None:
+                out["image_embs"] = img.cpu().numpy()
+            if txt is not None:
+                out["text_embs"] = txt.cpu().numpy()
         if img is not None:
-            out["image_embs"] = img.cpu().numpy()
             out["image_filename"] = batch["image_filename"]
         if txt is not None:
-            out["text_embs"] = txt.cpu().numpy()
             out["text"] = batch["text"]
         if "metadata" in batch:
             out["metadata"] = batch["metadata"]

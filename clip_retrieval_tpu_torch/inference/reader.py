@@ -10,7 +10,11 @@ Sampler arithmetic on keys (files) or shard urls (webdataset):
   and the native decoder release the GIL);
 - "image_tensor" is **uint8 HWC**; normalization runs on the device inside
   `clip.encode_image`;
-- webdataset tar streaming is first-party (stdlib tarfile over fsspec).
+- webdataset tar streaming is first-party (stdlib tarfile over fsspec);
+- each batch carries, under DECODE_KEY, the decode pool's counters for its
+  samples: how many were loaded, the summed wall ns of their loads (read,
+  decode, resize, tokenize), the pool threads' CPU ns since the previous
+  batch and the pool's worker count.
 """
 
 from __future__ import annotations
@@ -20,16 +24,19 @@ import io
 import os
 import shutil
 import tarfile
+import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from collections import deque
 from pathlib import Path
-from typing import Any, Iterator, Sequence
+from typing import Any, Sequence
 
 import numpy as np
 
 from ..models.preprocess import decode_resize_center_crop
 
 IMG_EXTS = ("png", "jpg", "jpeg", "bmp", "webp")
+DECODE_KEY = "_decode"
 
 
 def folder_to_keys(
@@ -91,24 +98,59 @@ def _collate(samples: list[dict[str, Any]]) -> dict[str, Any]:
 
 
 class _PrefetchIterator:
-    """Ordered, bounded-depth parallel map over an item iterator."""
+    """Ordered, bounded-depth parallel map over an item iterator.  It counts
+    the results handed out and sums the wall ns of each call of `fn`, and
+    reads its worker threads' CPU clocks, until `take_counters()` starts
+    the next count (one clock read per worker and batch, not per sample:
+    a thread's CPU clock is a system call)."""
 
     def __init__(self, items, fn, num_workers: int, depth: int):
         self.items = iter(items)
         self.fn = fn
-        self.pool = ThreadPoolExecutor(max_workers=max(1, num_workers))
+        self.workers = max(1, num_workers)
+        self._clocks: list[int] = []  # the workers' CPU clocks, as each starts
+        self.pool = ThreadPoolExecutor(max_workers=self.workers, initializer=self._add_clock)
         self.depth = depth
         self.futures: deque = deque()
+        self.loaded = self.wall_ns = self.cpu_ns = 0
+        self._cpu_at_end: int | None = None  # read before the workers stop
+
+    def _add_clock(self):
+        self._clocks.append(time.pthread_getcpuclockid(threading.get_ident()))
+
+    def _timed(self, item):
+        wall = time.perf_counter_ns()
+        return self.fn(item), time.perf_counter_ns() - wall
+
+    def _next_result(self):
+        out, wall = self.futures.popleft().result()
+        self.loaded += 1
+        self.wall_ns += wall
+        return out
+
+    def _pool_cpu_ns(self) -> int:
+        return sum(time.clock_gettime_ns(c) for c in list(self._clocks))
+
+    def take_counters(self) -> dict[str, int]:
+        """The counts since the last call: samples handed out, their loads'
+        wall ns, the workers' CPU ns, and the worker count."""
+        cpu_ns = self._cpu_at_end if self._cpu_at_end is not None else self._pool_cpu_ns()
+        counters = {"decode_samples": self.loaded, "decode_wall_ns": self.wall_ns,
+                    "decode_cpu_ns": cpu_ns - self.cpu_ns, "decode_workers": self.workers}
+        self.loaded = self.wall_ns = 0
+        self.cpu_ns = cpu_ns
+        return counters
 
     def __iter__(self):
         try:
             for item in self.items:
-                self.futures.append(self.pool.submit(self.fn, item))
+                self.futures.append(self.pool.submit(self._timed, item))
                 if len(self.futures) >= self.depth:
-                    yield self.futures.popleft().result()
+                    yield self._next_result()
             while self.futures:
-                yield self.futures.popleft().result()
+                yield self._next_result()
         finally:
+            self._cpu_at_end = self._pool_cpu_ns()
             self.pool.shutdown(wait=False, cancel_futures=True)
 
 
@@ -118,20 +160,21 @@ class _BaseReader:
     batch_size: int
     num_prepro_workers: int
 
-    def _sample_iter(self) -> Iterator[dict[str, Any] | None]:
+    def _sample_iter(self) -> _PrefetchIterator:
         raise NotImplementedError
 
     def __iter__(self):
         buf: list[dict[str, Any]] = []
-        for sample in self._sample_iter():
+        samples = self._sample_iter()
+        for sample in samples:
             if sample is None:  # corrupt image etc. — skip
                 continue
             buf.append(sample)
             if len(buf) == self.batch_size:
-                yield _collate(buf)
+                yield {**_collate(buf), DECODE_KEY: samples.take_counters()}
                 buf = []
         if buf:
-            yield _collate(buf)
+            yield {**_collate(buf), DECODE_KEY: samples.take_counters()}
 
 
 class FilesReader(_BaseReader):
@@ -189,11 +232,7 @@ class FilesReader(_BaseReader):
 
     def _sample_iter(self):
         depth = max(2 * self.batch_size, 64)
-        return iter(
-            _PrefetchIterator(
-                self.keys, self._load_one, self.num_prepro_workers, depth
-            )
-        )
+        return _PrefetchIterator(self.keys, self._load_one, self.num_prepro_workers, depth)
 
 
 def _base_plus_ext(name: str):
@@ -445,11 +484,4 @@ class WebdatasetReader(_BaseReader):
 
     def _sample_iter(self):
         depth = max(2 * self.batch_size, 64)
-        return iter(
-            _PrefetchIterator(
-                self._filtered_items(),
-                self._decode_one,
-                self.num_prepro_workers,
-                depth,
-            )
-        )
+        return _PrefetchIterator(self._filtered_items(), self._decode_one, self.num_prepro_workers, depth)

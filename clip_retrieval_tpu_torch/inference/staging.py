@@ -7,6 +7,11 @@ pinned host memory and issues the host→device copy on its own CUDA stream,
 one batch ahead, recording an event.  Before the batch is handed to the
 mapper, the consumer's stream waits on that event, so batch N+1 is in flight
 while batch N computes.  On the CPU the batch is simply wrapped as tensors.
+
+Each staged batch gets its number (`utils/trace.py`, under
+`trace.BATCH_KEY`); the staging thread records `staging.stage` with the
+reader's decode counters for the batch, and the consumer `staging.take`,
+its wait for the next staged batch.
 """
 
 from __future__ import annotations
@@ -17,6 +22,9 @@ from typing import Any, Iterator
 
 import numpy as np
 import torch
+
+from ..utils import trace
+from .reader import DECODE_KEY
 
 STAGED_KEY = "_staged_n"
 _EVENT_KEY = "_staged_event"
@@ -36,6 +44,16 @@ class DeviceStagingReader:
         self.copy_stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
 
     def _stage(self, batch: dict[str, Any]) -> dict[str, Any]:
+        seq = trace.next_batch()
+        with trace.span("staging.stage", batch=seq) as stage:
+            out = self._pad_and_copy(batch)
+            decode = out.pop(DECODE_KEY, None)
+            if decode is not None:
+                stage.count(**decode)
+        out[trace.BATCH_KEY] = seq
+        return out
+
+    def _pad_and_copy(self, batch: dict[str, Any]) -> dict[str, Any]:
         out = dict(batch)
         n = None
         for key in _TENSOR_KEYS:
@@ -91,7 +109,12 @@ class DeviceStagingReader:
         t.start()
         try:
             while True:
-                item = q.get()
+                with trace.span("staging.take") as take:
+                    item = q.get()
+                    if item is sentinel:
+                        take.drop()
+                    else:
+                        take.batch = item[trace.BATCH_KEY]
                 if item is sentinel:
                     if error:
                         raise error[0]
