@@ -6,34 +6,46 @@ batch dict keys ("image_tensor", "text_tokens", "image_filename", "text",
 "metadata"), same skip-on-corrupt-image behaviour and the same partition
 Sampler arithmetic on keys (files) or shard urls (webdataset):
 
-- a bounded thread pool decodes and tokenizes ahead of the consumer (PIL
-  and the native decoder release the GIL);
+- a bounded pool of worker processes decodes and tokenizes ahead of the
+  consumer, a run of consecutive items per task.  The workers are forked, so
+  they inherit the reader's load function with its preprocess and tokenizer
+  (lambdas and closures included) and nothing is pickled but the items; they
+  write each sample's arrays into rows of a ring in anonymous shared memory
+  and send back only the other values, so decoding runs outside the
+  consumer's interpreter lock and a batch costs the consumer one copy out of
+  the ring;
 - "image_tensor" is **uint8 HWC**; normalization runs on the device inside
   `clip.encode_image`;
-- webdataset tar streaming is first-party (stdlib tarfile over fsspec);
+- webdataset tar streaming is first-party (stdlib tarfile over fsspec), in
+  this process; the workers get each item's bytes;
 - each batch carries, under DECODE_KEY, the decode pool's counters for its
   samples: how many were loaded, the summed wall ns of their loads (read,
-  decode, resize, tokenize), the pool threads' CPU ns since the previous
-  batch and the pool's worker count.
+  decode, resize, tokenize), the workers' CPU ns (thread clock, per task)
+  since the previous batch and the pool's worker count.
 """
 
 from __future__ import annotations
 
+import gc
 import hashlib
 import io
+import itertools
+import mmap
+import multiprocessing
 import os
 import shutil
 import tarfile
-import threading
 import time
-from concurrent.futures import ThreadPoolExecutor
+import weakref
 from collections import deque
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
-from typing import Any, Sequence
+from typing import Any, Callable, Iterable, Sequence
 
 import numpy as np
 
 from ..models.preprocess import decode_resize_center_crop
+from ..native import get_decode_lib
 
 IMG_EXTS = ("png", "jpg", "jpeg", "bmp", "webp")
 DECODE_KEY = "_decode"
@@ -85,96 +97,217 @@ def folder_to_keys(
     return keys, rekey(text_files), rekey(image_files), rekey(metadata_files)
 
 
-def _collate(samples: list[dict[str, Any]]) -> dict[str, Any]:
-    """Stack per-sample dicts into a batch; numeric fields → arrays."""
-    out: dict[str, Any] = {}
-    for k in samples[0]:
-        vals = [s[k] for s in samples]
-        if isinstance(vals[0], np.ndarray):
-            out[k] = np.stack(vals)
-        else:
-            out[k] = vals
-    return out
+def _shared_ring(rows: int, shape: tuple[int, ...], dtype: np.dtype) -> np.ndarray:
+    """`rows` zeroed rows of `shape` in anonymous shared memory: a process
+    forked after this writes where this process reads.  The mapping has no
+    name, so nothing outlives the processes that map it."""
+    count = rows * int(np.prod(shape))
+    buf = mmap.mmap(-1, max(count * dtype.itemsize, 1))
+    return np.frombuffer(buf, dtype, count).reshape(rows, *shape)
 
 
-class _PrefetchIterator:
-    """Ordered, bounded-depth parallel map over an item iterator.  It counts
-    the results handed out and sums the wall ns of each call of `fn`, and
-    reads its worker threads' CPU clocks, until `take_counters()` starts
-    the next count (one clock read per worker and batch, not per sample:
-    a thread's CPU clock is a system call)."""
+# (load fn, rings, other keys) in a decode worker process, inherited through fork
+_JOB: tuple | None = None
 
-    def __init__(self, items, fn, num_workers: int, depth: int):
-        self.items = iter(items)
-        self.fn = fn
+
+def _start_worker(*job):
+    global _JOB
+    gc.freeze()  # the collector leaves the parent's objects alone: no copy-on-write, no finalizers here
+    _JOB = job
+
+
+def _load_chunk(items: list, slots: list[int]):
+    """Load a run of consecutive items in a decode worker.  Each good
+    sample's arrays go to row `slots[i]` of their ring; its other values
+    come back.  Returns the positions of the good items, their other values
+    by key, each item's load wall ns, and the worker's CPU ns for the run."""
+    fn, rings, keys = _JOB
+    cpu = time.thread_time_ns()
+    good: list[int] = []
+    walls: list[int] = []
+    values: dict[str, list] = {k: [] for k in keys}
+    for i, (item, slot) in enumerate(zip(items, slots)):
+        t0 = time.perf_counter_ns()
+        out = fn(item)
+        if out is not None:
+            for k, ring in rings.items():
+                arr = np.asarray(out[k])
+                if arr.shape != ring.shape[1:] or arr.dtype != ring.dtype:
+                    raise ValueError(f"{k} is {arr.dtype}{list(arr.shape)} where the first sample's was "
+                                     f"{ring.dtype}{list(ring.shape[1:])}")
+                ring[slot] = arr
+            for k, vals in values.items():
+                vals.append(out[k])
+            good.append(i)
+        walls.append(time.perf_counter_ns() - t0)
+    return good, values, walls, time.thread_time_ns() - cpu
+
+
+class _DecodePool:
+    """Batches of `batch_size` good samples, in item order, loaded by a pool
+    of forked worker processes.
+
+    The first good sample is loaded here first: its arrays fix the ring's
+    rows (it is loaded again by a worker, so every handed-out sample comes
+    from the pool).  Then `depth` items at most are in flight, in tasks of
+    `batch_size // workers` consecutive items; each item holds a ring row
+    until the batch it joins is copied out, so the ring never runs short.
+    `stop` terminates the workers and drops the ring; a worker that dies
+    raises `BrokenProcessPool` in `batches`."""
+
+    def __init__(self, items: Iterable, fn: Callable, num_workers: int, batch_size: int):
+        if "fork" not in multiprocessing.get_all_start_methods():
+            raise RuntimeError("the decode pool forks its workers, and this platform cannot fork")
         self.workers = max(1, num_workers)
-        self._clocks: list[int] = []  # the workers' CPU clocks, as each starts
-        self.pool = ThreadPoolExecutor(max_workers=self.workers, initializer=self._add_clock)
-        self.depth = depth
+        self.batch_size = batch_size
+        self.depth = max(2 * batch_size, 64)
+        self.chunk = max(1, batch_size // self.workers)
+        self.items = iter(items)
         self.futures: deque = deque()
+        self.in_flight = 0
         self.loaded = self.wall_ns = self.cpu_ns = 0
-        self._cpu_at_end: int | None = None  # read before the workers stop
+        self.pool = None
+        self.keys: list[str] = []
+        self.rings: dict[str, np.ndarray] = {}
+        self.other_keys: list[str] = []
+        first = self._probe(fn)
+        if first is None:  # nothing loads: no batch
+            return
+        self.keys = list(first)
+        rows = self.depth + batch_size + 2 * self.chunk
+        self.rings = {k: _shared_ring(rows, v.shape, v.dtype) for k, v in first.items() if isinstance(v, np.ndarray)}
+        self.other_keys = [k for k in self.keys if k not in self.rings]
+        self.free = deque(range(rows))
+        get_decode_lib()  # resolved once here; the workers inherit the answer instead of each retrying a build
+        self.pool = ProcessPoolExecutor(self.workers, mp_context=multiprocessing.get_context("fork"),
+                                        initializer=_start_worker, initargs=(fn, self.rings, self.other_keys))
+        try:
+            self._refill()  # the first task forks the workers, on the caller's thread
+        except BaseException:
+            self.stop()
+            raise
 
-    def _add_clock(self):
-        self._clocks.append(time.pthread_getcpuclockid(threading.get_ident()))
+    def _probe(self, fn):
+        """Load items here up to the first good one, which goes back at the
+        head of the items; the ones that fail count as loaded here."""
+        for item in self.items:
+            t0, cpu = time.perf_counter_ns(), time.thread_time_ns()
+            out = fn(item)
+            if out is not None:
+                self.items = itertools.chain([item], self.items)
+                return out
+            self.loaded += 1
+            self.wall_ns += time.perf_counter_ns() - t0
+            self.cpu_ns += time.thread_time_ns() - cpu
+        return None
 
-    def _timed(self, item):
-        wall = time.perf_counter_ns()
-        return self.fn(item), time.perf_counter_ns() - wall
+    def _refill(self):
+        while self.in_flight < self.depth:
+            items = list(itertools.islice(self.items, self.chunk))
+            if not items:
+                return
+            slots = [self.free.popleft() for _ in items]
+            self.futures.append((self.pool.submit(_load_chunk, items, slots), slots))
+            self.in_flight += len(items)
 
-    def _next_result(self):
-        out, wall = self.futures.popleft().result()
-        self.loaded += 1
-        self.wall_ns += wall
-        return out
-
-    def _pool_cpu_ns(self) -> int:
-        return sum(time.clock_gettime_ns(c) for c in list(self._clocks))
-
-    def take_counters(self) -> dict[str, int]:
-        """The counts since the last call: samples handed out, their loads'
-        wall ns, the workers' CPU ns, and the worker count."""
-        cpu_ns = self._cpu_at_end if self._cpu_at_end is not None else self._pool_cpu_ns()
-        counters = {"decode_samples": self.loaded, "decode_wall_ns": self.wall_ns,
-                    "decode_cpu_ns": cpu_ns - self.cpu_ns, "decode_workers": self.workers}
-        self.loaded = self.wall_ns = 0
-        self.cpu_ns = cpu_ns
+    def _take_counters(self) -> dict[str, int]:
+        counters = {"decode_samples": self.loaded, "decode_wall_ns": self.wall_ns, "decode_cpu_ns": self.cpu_ns,
+                    "decode_workers": self.workers}
+        self.loaded = self.wall_ns = self.cpu_ns = 0
         return counters
 
-    def __iter__(self):
+    def _batch(self, slots: list[int], values: dict[str, list]) -> dict[str, Any]:
+        rows = np.asarray(slots)
+        out = {k: self.rings[k][rows] if k in self.rings else values[k] for k in self.keys}  # copies out
+        out[DECODE_KEY] = self._take_counters()
+        return out
+
+    def batches(self):
         try:
-            for item in self.items:
-                self.futures.append(self.pool.submit(self._timed, item))
-                if len(self.futures) >= self.depth:
-                    yield self._next_result()
+            slots: list[int] = []
+            values: dict[str, list] = {k: [] for k in self.other_keys}
             while self.futures:
-                yield self._next_result()
+                future, chunk_slots = self.futures.popleft()
+                self.in_flight -= len(chunk_slots)
+                good, vals, walls, cpu = future.result()
+                self._refill()
+                kept = set(good)
+                self.free.extend(s for i, s in enumerate(chunk_slots) if i not in kept)
+                self.cpu_ns += cpu
+                pos = g = 0
+                while pos < len(walls):
+                    take = good[g : g + self.batch_size - len(slots)]
+                    full = len(slots) + len(take) == self.batch_size
+                    end = take[-1] + 1 if full else len(walls)
+                    slots.extend(chunk_slots[i] for i in take)
+                    for k, v in values.items():
+                        v.extend(vals[k][g : g + len(take)])
+                    self.loaded += end - pos
+                    self.wall_ns += sum(walls[pos:end])
+                    g, pos = g + len(take), end
+                    if full:
+                        yield self._batch(slots, values)
+                        self.free.extend(slots)
+                        slots, values = [], {k: [] for k in values}
+            if slots:
+                yield self._batch(slots, values)
         finally:
-            self._cpu_at_end = self._pool_cpu_ns()
-            self.pool.shutdown(wait=False, cancel_futures=True)
+            self.stop()
+
+    def stop(self):
+        pool, self.pool = self.pool, None
+        if pool is None:
+            return
+        self.futures.clear()
+        # the executor has no public call that stops a running worker: end them here
+        procs = list((getattr(pool, "_processes", None) or {}).values())
+        pool.shutdown(wait=False, cancel_futures=True)
+        for p in procs:
+            p.terminate()
+        for p in procs:
+            p.join(5)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        self.rings = {}
+
+
+def _end(batches, pool: _DecodePool):
+    batches.close()  # runs its `finally` if it started
+    pool.stop()
+
+
+class _Batches:
+    """Iterator over a decode pool's batches.  `close()`, or dropping the
+    last reference, stops the pool at once: the generator holds the pool
+    and nothing holds this object, so no cycle waits for the collector."""
+
+    def __init__(self, pool: _DecodePool):
+        self._batches = pool.batches()
+        self.close = weakref.finalize(self, _end, self._batches, pool)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> dict[str, Any]:
+        return next(self._batches)
 
 
 class _BaseReader:
-    """Shared batching logic: per-sample load fn → batches of batch_size."""
+    """Shared batching logic: per-sample load fn → batches of batch_size.
+    Iterating starts the decode pool (forking its workers) on the calling
+    thread."""
 
     batch_size: int
     num_prepro_workers: int
 
-    def _sample_iter(self) -> _PrefetchIterator:
+    def _source(self) -> tuple[Iterable, Callable]:
+        """The items to load, and the function that loads one (None: skip)."""
         raise NotImplementedError
 
-    def __iter__(self):
-        buf: list[dict[str, Any]] = []
-        samples = self._sample_iter()
-        for sample in samples:
-            if sample is None:  # corrupt image etc. — skip
-                continue
-            buf.append(sample)
-            if len(buf) == self.batch_size:
-                yield {**_collate(buf), DECODE_KEY: samples.take_counters()}
-                buf = []
-        if buf:
-            yield {**_collate(buf), DECODE_KEY: samples.take_counters()}
+    def __iter__(self) -> _Batches:
+        items, fn = self._source()
+        return _Batches(_DecodePool(items, fn, self.num_prepro_workers, self.batch_size))
 
 
 class FilesReader(_BaseReader):
@@ -230,9 +363,8 @@ class FilesReader(_BaseReader):
             out["metadata"] = Path(self.metadata_files[key]).read_text()
         return out
 
-    def _sample_iter(self):
-        depth = max(2 * self.batch_size, 64)
-        return _PrefetchIterator(self.keys, self._load_one, self.num_prepro_workers, depth)
+    def _source(self):
+        return self.keys, self._load_one
 
 
 def _base_plus_ext(name: str):
@@ -482,6 +614,5 @@ class WebdatasetReader(_BaseReader):
                 continue
             yield key, files
 
-    def _sample_iter(self):
-        depth = max(2 * self.batch_size, 64)
-        return _PrefetchIterator(self._filtered_items(), self._decode_one, self.num_prepro_workers, depth)
+    def _source(self):
+        return self._filtered_items(), self._decode_one

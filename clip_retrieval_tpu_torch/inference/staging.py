@@ -94,9 +94,11 @@ class DeviceStagingReader:
         error: list[BaseException] = []
         stop = threading.Event()
 
+        source = iter(self.reader)  # here, before the staging thread: a reader's pool forks on this thread
+
         def producer():
             try:
-                for batch in self.reader:
+                for batch in source:
                     if stop.is_set():  # consumer aborted: stop decoding the rest
                         return
                     q.put(self._stage(batch))
@@ -128,3 +130,6 @@ class DeviceStagingReader:
                 except queue.Empty:
                     pass
                 t.join(timeout=0.1)
+            close = getattr(source, "close", None)
+            if close is not None:  # stops the reader's decode workers
+                close()
