@@ -30,7 +30,6 @@ import torch
 from ..index.flat import FlatIndex
 from ..models import clip as tclip
 from ..models import safety as safety_mod
-from ..models.preprocess import decode_resize_center_crop
 from ..utils.device import resolve_device
 from . import metrics as M
 
@@ -155,7 +154,7 @@ class _Encoders:
 
     def image(self, img_data: BytesIO) -> np.ndarray:
         with M.IMAGE_PREPRO_TIME.time():
-            arr = decode_resize_center_crop(img_data.read(), self.bundle.cfg.image_size)
+            arr = self.bundle.preprocess(img_data.read())
         with M.IMAGE_CLIP_INFERENCE_TIME.time():
             return self._image_batcher.submit(arr)
 

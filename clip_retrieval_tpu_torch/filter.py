@@ -53,9 +53,7 @@ def clip_filter(
 
     with torch.inference_mode():
         if query.endswith((".png", ".jpg", ".jpeg", ".bmp")) and os.path.isfile(query):
-            from .models.preprocess import decode_resize_center_crop
-
-            arr = decode_resize_center_crop(Path(query).read_bytes(), bundle.cfg.image_size)
+            arr = bundle.preprocess(Path(query).read_bytes())
             # a decoded PIL image is a read-only view: copy it into the batch
             feats = tclip.encode_image(model, torch.from_numpy(np.stack([arr])).to(device))
         else:

@@ -22,7 +22,9 @@ with "image_tensor" (uint8 HWC) / "text_tokens" → output dict with
   the call's start until both towers are queued on the device, with the
   thread's CPU ns in it (`cpu_ns`: below its wall time, the thread waited
   for the interpreter lock or a core), and `mapper.readback`, the
-  embeddings' read-back to the host.
+  embeddings' read-back to the host.  Inside `mapper.enqueue`,
+  `mapper.image` and `mapper.text` time the queuing of each CLIP tower,
+  with the counter `tokens`: the rows the tower runs × its sequence length.
 """
 
 from __future__ import annotations
@@ -110,21 +112,27 @@ class ClipMapper:
             cpu_ns = time.thread_time_ns()
             if self.enable_image:
                 images = batch["image_tensor"]
-                if staged_n is None:
-                    arr, n = self.pad_batch(images)
-                    img = self.embed_images(self.to_device(arr))[:n]
-                else:
-                    img = self.embed_images(images)[:staged_n]
+                with trace.span("mapper.image") as tower:
+                    if staged_n is None:
+                        images, n = self.pad_batch(images)
+                        images = self.to_device(images)
+                    else:
+                        n = staged_n
+                    img = self.embed_images(images)[:n]
+                    tower.count(tokens=images.shape[0] * self.model.cfg.vision_seq_len)
             if self.enable_text and self.mclip is not None:
                 out["text_embs"] = self.mclip(batch["text"])
                 out["text"] = batch["text"]
             elif self.enable_text:
                 tokens = batch["text_tokens"]
-                if staged_n is None:
-                    arr, n = self.pad_batch(tokens.astype(np.int32))
-                    txt = self.embed_texts(self.to_device(arr))[:n]
-                else:
-                    txt = self.embed_texts(tokens)[:staged_n]
+                with trace.span("mapper.text") as tower:
+                    if staged_n is None:
+                        tokens, n = self.pad_batch(tokens.astype(np.int32))
+                        tokens = self.to_device(tokens)
+                    else:
+                        n = staged_n
+                    txt = self.embed_texts(tokens)[:n]
+                    tower.count(tokens=tokens.shape[0] * tokens.shape[1])
             enqueue.count(cpu_ns=time.thread_time_ns() - cpu_ns)
         with trace.span("mapper.readback"):
             if img is not None:

@@ -57,7 +57,7 @@ def worker(
     def reader_builder(sampler):
         kwargs = dict(
             sampler=sampler,
-            preprocess=bundle.image_size,
+            preprocess=bundle.preprocess,
             tokenizer=lambda texts: bundle.tokenize(texts),
             input_dataset=input_dataset,
             batch_size=batch_size,

@@ -1,4 +1,4 @@
-"""CLIP in PyTorch: ViT or ResNet image tower + causal text transformer.
+"""CLIP in PyTorch: ViT or ResNet image tower + text transformer.
 
 Counterpart of `clip_retrieval_tpu/models/clip.py`, with the same parameter
 names and layouts (x@W kernels of shape (in, out), the patch kernel as
@@ -6,7 +6,11 @@ names and layouts (x@W kernels of shape (in, out), the patch kernel as
 unchanged.  Where JAX scans over weights stacked on a leading layer axis,
 each tower here holds an `nn.ModuleList` of `Block`s walked by a Python loop.
 A config with `resnet_layers` gets the ModifiedResNet image tower of
-`models/resnet.py`; its text tower is the same transformer.
+`models/resnet.py`; its text tower is the same transformer.  A SigLIP
+config (`configs.py`) drops the class token and `ln_pre`, adds the patch
+bias, pools the image with `MapHead` and the text at its last position
+through a biased projection, with bidirectional text attention; the JAX
+package has no SigLIP, so only `loaders.convert_siglip_state_dict` fills it.
 
 Casting points follow the JAX package: weights are cast to the compute dtype
 for each matmul, which accumulates in f32; biases and LayerNorm are applied
@@ -22,8 +26,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import attention as attn_ops
+from ..utils import trace
 from ..utils.device import resolve_device
-from .configs import CLIPConfig
+from .configs import CLIPConfig, port_config
 
 # CLIP preprocessing constants (openai/open_clip defaults)
 IMAGE_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], dtype=np.float32)
@@ -71,6 +76,8 @@ def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
         return x * torch.sigmoid(1.702 * x)
     if kind == "gelu":
         return F.gelu(x, approximate="none")
+    if kind == "gelu_tanh":
+        return F.gelu(x, approximate="tanh")
     raise ValueError(f"unknown act {kind}")
 
 
@@ -118,11 +125,48 @@ class Block(nn.Module):
         return x + _dense(y, m.w_out, m.b_out)
 
 
+def _mlp_dim(width: int, mlp_ratio: float) -> int:
+    return int(round(width * mlp_ratio))
+
+
 def _blocks(n: int, width: int, mlp_ratio: float, heads: int, cfg: CLIPConfig, causal: bool, device):
-    mlp_dim = int(round(width * mlp_ratio))
+    mlp_dim = _mlp_dim(width, mlp_ratio)
     return nn.ModuleList(
         Block(width, mlp_dim, heads, cfg.act, cfg.layernorm_eps, causal, device) for _ in range(n)
     )
+
+
+class MapHead(nn.Module):
+    """SigLIP's multihead attention pooling: a learned probe is the one query
+    over every token (q from the probe, k and v from the tokens, biased
+    projections, then `out_proj`), and h + MLP(LN(h)) is the feature.
+
+    The probe's row of attention runs as plain products with f32 logits and
+    softmax (`attention.sdpa`, impl "xla"): the kernels work in 16-row
+    strips, and at one query row would waste 15/16 of their products."""
+
+    def __init__(self, cfg: CLIPConfig, device=None):
+        super().__init__()
+        w = cfg.vision_width
+        self.heads, self.act, self.eps = cfg.vision_heads, cfg.act, cfg.layernorm_eps
+        self.probe = _param(w, device=device)
+        self.attn = Attention(w, device)
+        self.ln = LayerNorm(w, device)
+        self.mlp = Mlp(w, _mlp_dim(w, cfg.vision_mlp_ratio), device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: (B, S, W) in the compute dtype → f32 (B, W)."""
+        b, s, w = x.shape
+        a, dh = self.attn, w // self.heads
+        q = _dense(self.probe.to(x.dtype).reshape(1, w), a.wq, a.bq)  # the same query for every image
+        k = _dense(x, a.wk, a.bk)
+        v = _dense(x, a.wv, a.bv)
+        split = lambda t: t.reshape(t.shape[0], -1, self.heads, dh).transpose(1, 2)  # noqa: E731
+        o = attn_ops.sdpa(split(q).expand(b, -1, -1, -1), split(k), split(v), impl="xla")
+        h = _dense(o.reshape(b, w), a.wo, a.bo)
+        m = self.mlp
+        y = _act(_dense(self.ln(h, self.eps), m.w_in, m.b_in), self.act)
+        return h.float() + matmul_f32(y, m.w_out) + m.b_out.float()
 
 
 class VisionTransformer(nn.Module):
@@ -132,27 +176,47 @@ class VisionTransformer(nn.Module):
         w = cfg.vision_width
         self.patch_embed = nn.Module()
         self.patch_embed.kernel = _param(cfg.patch_size, cfg.patch_size, 3, w, device=device)
-        self.class_emb = _param(w, device=device)
+        self.patch_embed.bias = _param(w, device=device) if cfg.patch_bias else None
+        self.class_emb = _param(w, device=device) if cfg.class_token else None
         self.pos_emb = _param(cfg.vision_seq_len, w, device=device)
-        self.ln_pre = LayerNorm(w, device)
+        self.ln_pre = LayerNorm(w, device) if cfg.ln_pre else None
         self.blocks = _blocks(cfg.vision_layers, w, cfg.vision_mlp_ratio, cfg.vision_heads, cfg, False, device)
         self.ln_post = LayerNorm(w, device)
-        self.proj = _param(w, cfg.embed_dim, device=device)
+        if cfg.pool == "map":
+            self.head, self.proj = MapHead(cfg, device), None
+        elif cfg.pool == "cls":
+            self.head, self.proj = None, _param(w, cfg.embed_dim, device=device)
+        else:
+            raise ValueError(f"unknown pool {cfg.pool!r}")
+
+    def embed_patches(self, x: torch.Tensor) -> torch.Tensor:
+        """The patch convolution, stride P and "valid" (the pixels past the
+        last whole patch dropped), as im2col over the top-left g·P pixels:
+        (B, H, W, 3) → (B, g, P, g, P, 3) → (B, g·g, P·P·3), then one
+        matmul → (B, g·g, width) in x's dtype."""
+        p_sz, g = self.cfg.patch_size, self.cfg.grid_size
+        b = x.shape[0]
+        if x.shape[1:3] != (g * p_sz, g * p_sz):
+            x = x[:, : g * p_sz, : g * p_sz]
+        x = x.reshape(b, g, p_sz, g, p_sz, 3).permute(0, 1, 3, 2, 4, 5).reshape(b, g * g, p_sz * p_sz * 3)
+        return _dense(x, self.patch_embed.kernel.reshape(-1, self.cfg.vision_width), self.patch_embed.bias)
 
     def forward(self, x: torch.Tensor, attn_impl: str = "auto") -> torch.Tensor:
-        """x: CLIP-normalized (B, H, W, 3) in the compute dtype → f32
+        """x: normalized (B, H, W, 3) in the compute dtype → f32
         (B, embed_dim) features, not normalized."""
         cfg = self.cfg
-        p_sz, g, w = cfg.patch_size, cfg.grid_size, cfg.vision_width
-        b = x.shape[0]
-        # im2col patchify: (B, g, P, g, P, 3) → (B, g*g, P*P*3), then one matmul
-        x = x.reshape(b, g, p_sz, g, p_sz, 3).permute(0, 1, 3, 2, 4, 5).reshape(b, g * g, p_sz * p_sz * 3)
-        x = matmul_f32(x, self.patch_embed.kernel.reshape(-1, w)).to(x.dtype)
-        cls = self.class_emb.to(x.dtype).expand(b, 1, w)
-        x = torch.cat([cls, x], dim=1) + self.pos_emb.to(x.dtype)
-        x = self.ln_pre(x, cfg.layernorm_eps)
+        b, w = x.shape[0], cfg.vision_width
+        x = self.embed_patches(x)
+        if self.class_emb is not None:
+            x = torch.cat([self.class_emb.to(x.dtype).expand(b, 1, w), x], dim=1)
+        x = x + self.pos_emb.to(x.dtype)
+        if self.ln_pre is not None:
+            x = self.ln_pre(x, cfg.layernorm_eps)
         for blk in self.blocks:
             x = blk(x, attn_impl)
+        if self.head is not None:
+            with trace.span("visual.head"):
+                return self.head(self.ln_post(x, cfg.layernorm_eps))
         x = self.ln_post(x[:, 0], cfg.layernorm_eps)
         return matmul_f32(x, self.proj)
 
@@ -164,27 +228,35 @@ class TextTransformer(nn.Module):
         tw = cfg.text_width
         self.token_emb = _param(cfg.vocab_size, tw, device=device)
         self.pos_emb = _param(cfg.context_length, tw, device=device)
-        self.blocks = _blocks(cfg.text_layers, tw, cfg.text_mlp_ratio, cfg.text_heads, cfg, True, device)
+        self.blocks = _blocks(cfg.text_layers, tw, cfg.text_mlp_ratio, cfg.text_heads, cfg, cfg.text_causal, device)
         self.ln_final = LayerNorm(tw, device)
         self.proj = _param(tw, cfg.embed_dim, device=device)
+        self.proj_bias = _param(cfg.embed_dim, device=device) if cfg.text_proj_bias else None
+        if cfg.text_pool not in ("eot", "last"):
+            raise ValueError(f"unknown text pool {cfg.text_pool!r}")
 
     def forward(self, tokens: torch.Tensor, compute_dtype: torch.dtype, attn_impl: str = "auto") -> torch.Tensor:
         """tokens: (B, context_length) integer ids → f32 (B, embed_dim)
-        features pooled at the EOT position argmax(tokens)."""
+        features pooled at the EOT position argmax(tokens) (CLIP), or at the
+        last position (SigLIP)."""
         x = self.token_emb[tokens].to(compute_dtype)
         x = x + self.pos_emb[: x.shape[1]].to(compute_dtype)
         for blk in self.blocks:
             x = blk(x, attn_impl)
         x = self.ln_final(x, self.cfg.layernorm_eps)
-        eot = torch.argmax(tokens, dim=-1)
-        x = x[torch.arange(x.shape[0], device=x.device), eot]
-        return matmul_f32(x, self.proj)
+        if self.cfg.text_pool == "last":
+            x = x[:, -1]
+        else:
+            eot = torch.argmax(tokens, dim=-1)
+            x = x[torch.arange(x.shape[0], device=x.device), eot]
+        y = matmul_f32(x, self.proj)
+        return y if self.proj_bias is None else y + self.proj_bias.float()
 
 
 class CLIP(nn.Module):
     def __init__(self, cfg: CLIPConfig, device=None):
         super().__init__()
-        self.cfg = cfg
+        self.cfg = cfg = port_config(cfg)
         if cfg.vision_kind == "resnet":
             from .resnet import ResNetVisual
 
@@ -207,7 +279,8 @@ def init_clip(cfg: CLIPConfig, seed: int = 0, device: str | torch.device = "cuda
     N(0, 1)·width^-½ for attention, MLP-in, patch, class, position and
     projection weights; (2·width)^-½ for MLP-out; 0.02 and 0.01 for the
     text token and position embeddings; LayerNorm 1/0 and zero biases.  A
-    ResNet image tower takes `resnet.init_resnet_visual`'s scales.
+    ResNet image tower takes `resnet.init_resnet_visual`'s scales; a
+    pooling head's probe and products take the blocks' scales.
     Random numbers come from a `torch.Generator` on `device` seeded with
     `seed`, so they differ from the JAX package's for the same seed.  The
     default device is CUDA; without a GPU it raises unless given "cpu"."""
@@ -228,8 +301,12 @@ def init_clip(cfg: CLIPConfig, seed: int = 0, device: str | torch.device = "cuda
             init_resnet_visual(v, gen)
         else:
             for p in (v.patch_embed.kernel, v.class_emb, v.pos_emb, v.proj):
-                fill(p, w ** -0.5)
+                if p is not None:
+                    fill(p, w ** -0.5)
             towers.append((v.blocks, w))
+            if v.head is not None:
+                fill(v.head.probe, w ** -0.5)
+                towers.append(([v.head], w))
         t, tw = model.text, cfg.text_width
         fill(t.token_emb, 0.02)
         fill(t.pos_emb, 0.01)
@@ -247,17 +324,21 @@ def init_clip(cfg: CLIPConfig, seed: int = 0, device: str | torch.device = "cuda
 # ---------------------------------------------------------------------------
 
 
-def normalize_images(images: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """uint8 (B, H, W, 3) or float in [0, 1] → CLIP-normalized `dtype`.
+def normalize_images(
+    images: torch.Tensor, dtype: torch.dtype = torch.float32, mean=IMAGE_MEAN, std=IMAGE_STD
+) -> torch.Tensor:
+    """uint8 (B, H, W, 3) or float in [0, 1] → `dtype` normalized by the
+    per-channel `mean` and `std` (CLIP's by default).
 
-    `encode_image` applies this only to uint8 inputs; float inputs to
-    `encode_image` are taken as already normalized."""
+    `encode_image` applies this only to uint8 inputs, with the config's
+    mean and std; float inputs to `encode_image` are taken as already
+    normalized."""
     if images.dtype == torch.uint8:
         x = images.to(dtype) / torch.tensor(255.0, dtype=dtype, device=images.device)
     else:
         x = images.to(dtype)
-    mean = torch.as_tensor(IMAGE_MEAN, device=images.device).to(dtype)
-    std = torch.as_tensor(IMAGE_STD, device=images.device).to(dtype)
+    mean = torch.as_tensor(np.asarray(mean, np.float32), device=images.device).to(dtype)
+    std = torch.as_tensor(np.asarray(std, np.float32), device=images.device).to(dtype)
     return (x - mean) / std
 
 
@@ -275,13 +356,13 @@ def encode_image(
     compute_dtype: torch.dtype = torch.float32,
     attn_impl: str = "auto",
 ) -> torch.Tensor:
-    """images: (B, H, W, 3) uint8 or CLIP-normalized float → f32
+    """images: (B, H, W, 3) uint8 or normalized float → f32
     (B, embed_dim), L2-normalized unless normalize=False.  The ViT and the
     ResNet tower take the same normalized input (JAX `encode_image`).
     attn_impl: "auto" | "flash" → kernel K1 (no backward); "xla" → the plain
     attention, differentiable (the JAX names; the ResNet tower ignores it)."""
     if images.dtype == torch.uint8:
-        x = normalize_images(images, compute_dtype)
+        x = normalize_images(images, compute_dtype, model.cfg.image_mean, model.cfg.image_std)
     elif images.dtype in (torch.float32, torch.bfloat16):
         x = images.to(compute_dtype)
     else:
@@ -299,8 +380,8 @@ def encode_text(
     attn_impl: str = "auto",
 ) -> torch.Tensor:
     """tokens: (B, context_length) int → f32 (B, embed_dim), pooled at
-    argmax(tokens) (EOT has the largest id in the CLIP vocab).  attn_impl
-    as for `encode_image`."""
+    argmax(tokens) (EOT has the largest id in the CLIP vocab), or at the
+    last position for SigLIP.  attn_impl as for `encode_image`."""
     feats = model.text(tokens.long(), compute_dtype, attn_impl)
     return l2_normalize(feats) if normalize else feats
 

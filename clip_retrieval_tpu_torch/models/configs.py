@@ -5,7 +5,9 @@ The reference delegates model definition to `all_clip.load_clip`
 architectures natively.  Configs cover the model families the reference's docs
 exercise (ViT-B/32, B/16, L/14, H/14, g/14 + the mCLIP text variants handled
 separately in loaders) plus the openai ResNet family (RN50, RN101,
-RN50x{4,16,64}) the reference reaches through the same `clip_model` string.
+RN50x{4,16,64}) the reference reaches through the same `clip_model` string,
+and SigLIP So400m/14 at 384 px (open_clip's `ViT-SO400M-14-SigLIP-384`),
+whose towers depart from CLIP's in the fields marked "SigLIP" below.
 """
 
 from __future__ import annotations
@@ -42,9 +44,33 @@ class CLIPConfig:
     text_heads: int = 8
     text_mlp_ratio: float = 4.0
 
-    # activation: openai checkpoints use quick_gelu; open_clip H/g use gelu
+    # activation: openai checkpoints use quick_gelu; open_clip H/g use gelu;
+    # SigLIP uses gelu_tanh (transformers' gelu_pytorch_tanh)
     act: str = "quick_gelu"
     layernorm_eps: float = 1e-5
+
+    # SigLIP: the image tower has no class token and no ln_pre, a patch
+    # convolution with bias, and pools with the attention-pooling head
+    # ("map": ln_post over every token, then a learned probe attends to
+    # them; no projection after it) in place of "cls" (ln_post(x[:, 0]) @
+    # proj); the text tower is bidirectional, pooled at the last position
+    # ("last", in place of "eot" = argmax(tokens)), and its projection
+    # carries a bias
+    class_token: bool = True
+    ln_pre: bool = True
+    patch_bias: bool = False
+    pool: str = "cls"
+    text_causal: bool = True
+    text_pool: str = "eot"
+    text_proj_bias: bool = False
+
+    # preprocessing: CLIP's mean and std, the shorter side resized then
+    # centre-cropped ("crop"); SigLIP normalizes with 0.5 and resizes both
+    # sides to image_size ("squash"); "clip" BPE or "siglip" framing tokens
+    image_mean: tuple = (0.48145466, 0.4578275, 0.40821073)
+    image_std: tuple = (0.26862954, 0.26130258, 0.27577711)
+    resize: str = "crop"
+    tokenizer: str = "clip"
 
     @property
     def vision_kind(self) -> str:
@@ -52,7 +78,9 @@ class CLIPConfig:
 
     @property
     def grid_size(self) -> int:
-        # ModifiedResNet downsamples 32x total (stem 4x + 3 strided stages)
+        # ModifiedResNet downsamples 32x total (stem 4x + 3 strided stages);
+        # a ViT's "valid" patch convolution drops the pixels past the last
+        # whole patch (SigLIP: 384 px at patch 14 → 27)
         if self.resnet_layers:
             return self.image_size // 32
         return self.image_size // self.patch_size
@@ -68,7 +96,7 @@ class CLIPConfig:
 
     @property
     def vision_seq_len(self) -> int:
-        return self.num_patches + 1  # + class token
+        return self.num_patches + int(self.class_token)
 
     @property
     def vision_head_dim(self) -> int:
@@ -234,6 +262,72 @@ TEST_TINY_RN = _register(
         text_heads=4,
     )
 )
+
+
+# SigLIP So400m/14 at 384 px (google/siglip-so400m-patch14-384 config.json;
+# open_clip `ViT-SO400M-14-SigLIP-384`): 27 + 27 layers of width 1152, 16
+# heads of 72, MLP 4304 in both towers, vocabulary 32,000, context 64
+SIGLIP_SO400M_14_384 = _register(
+    CLIPConfig(
+        name="ViT-SO400M-14-SigLIP-384",
+        embed_dim=1152,
+        image_size=384,
+        patch_size=14,
+        vision_width=1152,
+        vision_layers=27,
+        vision_heads=16,
+        vision_mlp_ratio=4304 / 1152,
+        vocab_size=32000,
+        context_length=64,
+        text_width=1152,
+        text_layers=27,
+        text_heads=16,
+        text_mlp_ratio=4304 / 1152,
+        act="gelu_tanh",
+        layernorm_eps=1e-6,
+        class_token=False,
+        ln_pre=False,
+        patch_bias=True,
+        pool="map",
+        text_causal=False,
+        text_pool="last",
+        text_proj_bias=True,
+        image_mean=(0.5, 0.5, 0.5),
+        image_std=(0.5, 0.5, 0.5),
+        resize="squash",
+        tokenizer="siglip",
+    )
+)
+
+# Tiny SigLIP for tests: 44 px at patch 8 (a 5 x 5 grid, the last 4 pixel
+# rows and columns dropped), head dims 10 and 12, a text width other than
+# the embedding's, 260 ≥ the byte-level SigLIP ids (3 + 255 + 1)
+TEST_TINY_SIGLIP = _register(
+    SIGLIP_SO400M_14_384.replace(
+        name="test-tiny-siglip",
+        embed_dim=40,
+        image_size=44,
+        patch_size=8,
+        vision_width=40,
+        vision_layers=2,
+        vision_heads=4,
+        vision_mlp_ratio=1.5,
+        vocab_size=260,
+        context_length=16,
+        text_width=24,
+        text_layers=2,
+        text_heads=2,
+        text_mlp_ratio=2.5,
+    )
+)
+
+
+def port_config(cfg) -> CLIPConfig:
+    """`cfg` as this package's `CLIPConfig`: a config of the JAX package,
+    which has CLIP's fields only, takes the defaults of the SigLIP ones."""
+    if isinstance(cfg, CLIPConfig):
+        return cfg
+    return CLIPConfig(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(CLIPConfig) if hasattr(cfg, f.name)})
 
 
 def get_config(name: str) -> CLIPConfig:

@@ -6,6 +6,10 @@ for ViT towers:
 - HF `transformers.CLIPModel` state dicts  (keys `vision_model.*`)
 - openai CLIP / open_clip state dicts      (keys `visual.*`, fused in_proj)
 - the JAX package's own param tree          (`from_jax_params`)
+- HF `transformers.SiglipModel` state dicts (`vision_model.head.probe`;
+  `convert_siglip_state_dict`), which no JAX tree holds: their tree carries
+  the SigLIP entries (`patch_embed.bias`, `head`, the text `proj_bias`)
+  and leaves out `class_emb`, `ln_pre` and the image `proj`
 
 Every source is first turned into the JAX package's nested tree of numpy
 arrays (blocks stacked on a leading layer axis, x@W kernels), and
@@ -54,15 +58,24 @@ def _copy(dst: torch.Tensor, src, name: str):
     dst.copy_(torch.from_numpy(arr))
 
 
+def _copy_ln(ln, tree: Mapping[str, Any], name: str):
+    for leaf in ("scale", "bias"):
+        _copy(getattr(ln, leaf), tree[leaf], f"{name}.{leaf}")
+
+
+def _copy_attn_mlp(blk, tree: Mapping[str, Any], prefix: str, pick):
+    for name in ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "bo"):
+        _copy(getattr(blk.attn, name), pick(tree["attn"][name]), f"{prefix}.attn.{name}")
+    for name in ("w_in", "b_in", "w_out", "b_out"):
+        _copy(getattr(blk.mlp, name), pick(tree["mlp"][name]), f"{prefix}.mlp.{name}")
+
+
 def _copy_blocks(blocks, tree: Mapping[str, Any], prefix: str):
     for i, blk in enumerate(blocks):
         for sub in ("ln_1", "ln_2"):
             for name in ("scale", "bias"):
                 _copy(getattr(getattr(blk, sub), name), tree[sub][name][i], f"{prefix}.{sub}.{name}[{i}]")
-        for name in ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "bo"):
-            _copy(getattr(blk.attn, name), tree["attn"][name][i], f"{prefix}.attn.{name}[{i}]")
-        for name in ("w_in", "b_in", "w_out", "b_out"):
-            _copy(getattr(blk.mlp, name), tree["mlp"][name][i], f"{prefix}.mlp.{name}[{i}]")
+        _copy_attn_mlp(blk, tree, f"{prefix}[{i}]", lambda a: a[i])
 
 
 def _copy_conv(conv, tree: Mapping[str, Any], name: str, i: int | None = None):
@@ -112,14 +125,23 @@ def from_jax_params(tree: Mapping[str, Any], cfg: CLIPConfig, device: str | torc
             _copy_resnet_visual(v, vt)
         else:
             _copy(v.patch_embed.kernel, vt["patch_embed"]["kernel"], "visual.patch_embed.kernel")
+            if v.patch_embed.bias is not None:
+                _copy(v.patch_embed.bias, vt["patch_embed"]["bias"], "visual.patch_embed.bias")
             for name in ("class_emb", "pos_emb", "proj"):
-                _copy(getattr(v, name), vt[name], f"visual.{name}")
+                if getattr(v, name) is not None:
+                    _copy(getattr(v, name), vt[name], f"visual.{name}")
             for ln in ("ln_pre", "ln_post"):
-                for name in ("scale", "bias"):
-                    _copy(getattr(getattr(v, ln), name), vt[ln][name], f"visual.{ln}.{name}")
+                if getattr(v, ln) is not None:
+                    _copy_ln(getattr(v, ln), vt[ln], f"visual.{ln}")
             _copy_blocks(v.blocks, vt["blocks"], "visual.blocks")
-        for name in ("token_emb", "pos_emb", "proj"):
-            _copy(getattr(t, name), tt[name], f"text.{name}")
+            if v.head is not None:
+                ht = vt["head"]
+                _copy(v.head.probe, ht["probe"], "visual.head.probe")
+                _copy_ln(v.head.ln, ht["ln"], "visual.head.ln")
+                _copy_attn_mlp(v.head, ht, "visual.head", lambda a: a)
+        for name in ("token_emb", "pos_emb", "proj", "proj_bias"):
+            if getattr(t, name) is not None:
+                _copy(getattr(t, name), tt[name], f"text.{name}")
         for name in ("scale", "bias"):
             _copy(getattr(t.ln_final, name), tt["ln_final"][name], f"text.ln_final.{name}")
         _copy_blocks(t.blocks, tt["blocks"], "text.blocks")
@@ -186,6 +208,62 @@ def hf_tree(sd: Mapping[str, Any], cfg: CLIPConfig) -> dict:
 def convert_hf_state_dict(sd: Mapping[str, Any], cfg: CLIPConfig, device: str | torch.device = "cuda") -> CLIP:
     device = resolve_device(device)
     return from_jax_params(hf_tree(sd, cfg), cfg, device)
+
+
+# ---------------------------------------------------------------------------
+# HF transformers SiglipModel
+# ---------------------------------------------------------------------------
+
+
+def siglip_tree(sd: Mapping[str, Any], cfg: CLIPConfig) -> dict:
+    """HF SiglipModel state dict → a param tree in the JAX package's layout
+    with SigLIP's entries (Linear weights (out, in) transposed to x@W, the
+    pooling head's stacked q|k|v `in_proj` split)."""
+    g = lambda k: _np(sd[k])
+    lin = lambda k: g(k + ".weight").T  # noqa: E731
+    ln = lambda k: {"scale": g(k + ".weight"), "bias": g(k + ".bias")}  # noqa: E731
+    h, w = "vision_model.head.", cfg.vision_width
+    in_w, in_b = g(h + "attention.in_proj_weight"), g(h + "attention.in_proj_bias")
+    head = {
+        "probe": g(h + "probe").reshape(-1),
+        "attn": {
+            "wq": in_w[:w].T, "wk": in_w[w : 2 * w].T, "wv": in_w[2 * w :].T, "wo": lin(h + "attention.out_proj"),
+            "bq": in_b[:w], "bk": in_b[w : 2 * w], "bv": in_b[2 * w :], "bo": g(h + "attention.out_proj.bias"),
+        },
+        "ln": ln(h + "layernorm"),
+        "mlp": {"w_in": lin(h + "mlp.fc1"), "b_in": g(h + "mlp.fc1.bias"), "w_out": lin(h + "mlp.fc2"),
+                "b_out": g(h + "mlp.fc2.bias")},
+    }
+    pe = "vision_model.embeddings.patch_embedding."
+    visual = {
+        # (W, 3, P, P) → (P, P, 3, W)
+        "patch_embed": {"kernel": g(pe + "weight").transpose(2, 3, 1, 0), "bias": g(pe + "bias")},
+        "pos_emb": g("vision_model.embeddings.position_embedding.weight"),
+        "blocks": _hf_tower(sd, "vision_model", cfg.vision_layers),
+        "ln_post": ln("vision_model.post_layernorm"),
+        "head": head,
+    }
+    text = {
+        "token_emb": g("text_model.embeddings.token_embedding.weight"),
+        "pos_emb": g("text_model.embeddings.position_embedding.weight"),
+        "blocks": _hf_tower(sd, "text_model", cfg.text_layers),
+        "ln_final": ln("text_model.final_layer_norm"),
+        "proj": lin("text_model.head"),
+        "proj_bias": g("text_model.head.bias"),
+    }
+    return {"visual": visual, "text": text, "logit_scale": g("logit_scale").reshape(())}
+
+
+def convert_siglip_state_dict(
+    sd: Mapping[str, Any], cfg: CLIPConfig, device: str | torch.device = "cuda"
+) -> CLIP:
+    """HF SiglipModel state dict → a `CLIP` module of a SigLIP config on
+    `device` (SigLIP's `logit_bias` has no place in an embedding model and is
+    not read)."""
+    device = resolve_device(device)
+    if cfg.pool != "map":
+        raise ValueError(f"{cfg.name} is not a SigLIP config (pool {cfg.pool!r})")
+    return from_jax_params(siglip_tree(sd, cfg), cfg, device)
 
 
 # ---------------------------------------------------------------------------
@@ -307,6 +385,8 @@ def convert_openai_state_dict(
 
 
 def detect_format(sd: Mapping[str, Any]) -> str:
+    if "vision_model.head.probe" in sd:
+        return "hf_siglip"
     if any(k.startswith("vision_model.") for k in sd):
         return "hf"
     if any(k.startswith("visual.") for k in sd):
@@ -316,7 +396,10 @@ def detect_format(sd: Mapping[str, Any]) -> str:
 
 def convert_state_dict(sd: Mapping[str, Any], cfg: CLIPConfig, device: str | torch.device = "cuda") -> CLIP:
     device = resolve_device(device)
-    if detect_format(sd) == "hf":
+    fmt = detect_format(sd)
+    if fmt == "hf_siglip":
+        return convert_siglip_state_dict(sd, cfg, device)
+    if fmt == "hf":
         return convert_hf_state_dict(sd, cfg, device)
     return convert_openai_state_dict(sd, cfg, device)
 

@@ -1,4 +1,5 @@
-"""Host image preprocessing: decode, bicubic resize, center crop → uint8 HWC,
+"""Host image preprocessing: decode, bicubic resize, center crop → uint8 HWC
+(CLIP), or decode and a bicubic resize of both sides (SigLIP's "squash"),
 and the batched bicubic resize on the device.
 
 Counterpart of `clip_retrieval_tpu/models/preprocess.py`.  The host side
@@ -66,6 +67,17 @@ def _pil_decode_resize_crop(data, size: int) -> np.ndarray:
     img = img.resize((nw, nh), Image.BICUBIC)
     left, top = (nw - size) // 2, (nh - size) // 2
     img = img.crop((left, top, left + size, top + size))
+    return np.asarray(img, dtype=np.uint8)
+
+
+def decode_resize_squash(data, size: int) -> np.ndarray:
+    """bytes/PIL image → (size, size, 3) uint8: both sides resized to `size`,
+    bicubic, no crop (SigLIP's preprocessing; PIL's resize, as open_clip's
+    torchvision `Resize((size, size))` on a PIL image does)."""
+    if not _HAS_PIL:
+        raise RuntimeError("PIL required for the squash resize")
+    img = data if isinstance(data, Image.Image) else Image.open(io.BytesIO(data))
+    img = img.convert("RGB").resize((size, size), Image.BICUBIC)
     return np.asarray(img, dtype=np.uint8)
 
 

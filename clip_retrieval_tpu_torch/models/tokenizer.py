@@ -265,3 +265,31 @@ class CLIPTokenizer:
                 ids[-1] = self.eot_token
             out[row, : len(ids)] = ids
         return out
+
+
+class SiglipTokenizer:
+    """SigLIP's framing of a caption (open_clip's `ViT-SO400M-14-SigLIP-384`
+    tokenizer): no start token, EOS (id 1) appended, padded with the pad id
+    (also 1) to `context_length`, over-long input cut with EOS kept last.
+
+    The published tokenizer is a SentencePiece model that is not in this
+    repository, so the ids are byte-level: UTF-8 byte b is id 3 + b (ids 0-2
+    are SentencePiece's pad/eos/unk).  A trained checkpoint's text tower
+    reads these ids as other tokens than it was trained on."""
+
+    PAD = EOS = 1
+    OFFSET = 3
+    vocab_size = OFFSET + 256
+
+    def encode(self, text: str) -> List[int]:
+        return [self.OFFSET + b for b in text.encode("utf-8")]
+
+    def __call__(self, texts: str | Sequence[str], context_length: int = 64) -> np.ndarray:
+        """Tokenize → (B, context_length) int32, EOS framed, pad-filled."""
+        if isinstance(texts, str):
+            texts = [texts]
+        out = np.full((len(texts), context_length), self.PAD, dtype=np.int32)
+        for row, text in enumerate(texts):
+            ids = self.encode(text)[: context_length - 1] + [self.EOS]
+            out[row, : len(ids)] = ids
+        return out

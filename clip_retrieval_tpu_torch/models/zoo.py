@@ -11,12 +11,15 @@ sources:
 - "hf:<local dir>" → transformers CLIPModel.from_pretrained(dir).
 
 The model is built on `device`.  Tokenizer: real CLIP BPE when a merges file
-is available (CRT_BPE_PATH or cache), else the byte-level fallback.
+is available (CRT_BPE_PATH or cache), else the byte-level fallback; a SigLIP
+config takes SigLIP's framing over byte-level ids (`SiglipTokenizer`).  The
+bundle's `preprocess` is the config's host resize (centre crop or squash).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -24,7 +27,8 @@ import torch
 from . import configs, loaders
 from .clip import CLIP, init_clip
 from ..utils.device import resolve_device
-from .tokenizer import CLIPTokenizer, default_bpe_path
+from .preprocess import decode_resize_center_crop, decode_resize_squash
+from .tokenizer import CLIPTokenizer, SiglipTokenizer, default_bpe_path
 
 
 @dataclasses.dataclass
@@ -32,17 +36,29 @@ class ModelBundle:
     name: str
     cfg: configs.CLIPConfig
     model: CLIP
-    tokenizer: CLIPTokenizer
+    tokenizer: CLIPTokenizer | SiglipTokenizer
 
     @property
     def image_size(self) -> int:
         return self.cfg.image_size
 
+    @property
+    def preprocess(self):
+        """Image bytes → (image_size, image_size, 3) uint8, resized as the
+        config says; the readers' `preprocess`."""
+        resize = {"crop": decode_resize_center_crop, "squash": decode_resize_squash}[self.cfg.resize]
+        return functools.partial(resize, size=self.cfg.image_size)
+
     def tokenize(self, texts, context_length: int | None = None) -> np.ndarray:
         return self.tokenizer(texts, context_length or self.cfg.context_length)
 
 
-def _make_tokenizer(cfg: configs.CLIPConfig, real_weights: bool = False) -> CLIPTokenizer:
+def _make_tokenizer(cfg: configs.CLIPConfig, real_weights: bool = False) -> CLIPTokenizer | SiglipTokenizer:
+    if cfg.tokenizer == "siglip":
+        if real_weights:
+            print("WARNING: SigLIP's SentencePiece model is not available; captions are tokenized as bytes, "
+                  "which a trained text tower reads as other tokens (text embeddings will be meaningless)")
+        return SiglipTokenizer()
     if default_bpe_path() is not None:
         return CLIPTokenizer()
     if real_weights:

@@ -10,6 +10,11 @@ record where each batch's time goes:
   device, counter `cpu_ns` = the thread's CPU time in it, and
   `mapper.readback`, the embeddings read back to the host) and
   `runner.write`;
+- inside `mapper.enqueue`: `mapper.image` and `mapper.text`, each CLIP
+  tower queued, counter `tokens` = rows × the tower's sequence length
+  (256 × 257 and 256 × 77 at ViT-L/14, 256 × 729 and 256 × 64 at SigLIP
+  So400m/384), and inside `mapper.image` `visual.head`, the pooling head of
+  a SigLIP image tower (`models/clip.py`);
 - `staging.stage`: the staging thread's pad, pin and host→device copy of a
   batch, carrying the reader's decode counters for it (`decode_samples`,
   `decode_wall_ns`, `decode_cpu_ns`, `decode_workers`).

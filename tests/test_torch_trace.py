@@ -15,6 +15,7 @@ import json
 import os
 import threading
 
+import numpy as np
 import pytest
 import torch
 
@@ -31,7 +32,7 @@ from tests.test_inference.fixtures import make_files_corpus
 N, BS, WORKERS = 37, 8, 8
 SIZES = [8, 8, 8, 8, 5]
 CHILDREN = {"runner.batch": ["runner.map", "runner.read", "runner.write"], "runner.read": ["staging.take"],
-            "runner.map": ["mapper.enqueue", "mapper.readback"]}
+            "runner.map": ["mapper.enqueue", "mapper.readback"], "mapper.enqueue": ["mapper.image", "mapper.text"]}
 
 
 @pytest.fixture(scope="module")
@@ -100,7 +101,7 @@ def test_each_batch_has_its_spans(run):
         assert 0 < enq["counters"]["cpu_ns"]
     assert sorted(s["name"] for s in spans) == sorted(
         ["runner.batch", "runner.read", "runner.map", "runner.write", "staging.take", "staging.stage",
-         "mapper.enqueue", "mapper.readback"] * len(SIZES))
+         "mapper.enqueue", "mapper.image", "mapper.text", "mapper.readback"] * len(SIZES))
 
 
 def test_stats_json_is_what_the_spans_sum_to(run):
@@ -224,3 +225,28 @@ def test_threads_keep_their_own_parents_and_batches():
         if s["name"] == "inner":
             p = outer[s["parent"]]
             assert p["thread"] == s["thread"] and p["batch"] == s["batch"] == 100 + s["counters"]["n"] - 1
+
+
+@pytest.mark.parametrize("model,heads", [("test-tiny", 0), ("test-tiny-siglip", 1)])
+def test_tower_spans_count_tokens(model, heads):
+    """A mapper call records `mapper.image` and `mapper.text` inside
+    `mapper.enqueue`, each counting rows × its sequence length; a SigLIP
+    image tower adds `visual.head` inside `mapper.image`, a CLIP one (the
+    ViT-L/14 structure at test size) none."""
+    m = ClipMapper(enable_image=True, enable_text=True, clip_model=model, batch_size=BS, device="cpu")
+    cfg = m.bundle.cfg
+    n = 3  # padded to the batch size
+    batch = {"image_tensor": np.zeros((n, cfg.image_size, cfg.image_size, 3), np.uint8),
+             "text_tokens": m.bundle.tokenize(["a cat"] * n), "image_filename": ["f"] * n, "text": ["a cat"] * n}
+    before = {s["id"] for s in trace.export()}
+    m(batch)
+    spans = [s for s in trace.export() if s["id"] not in before]
+    by_name = {s["name"]: s for s in spans}
+    assert sorted(by_name) == sorted(["mapper.enqueue", "mapper.image", "mapper.text", "mapper.readback"]
+                                     + ["visual.head"] * heads)
+    enqueue, image, text = by_name["mapper.enqueue"], by_name["mapper.image"], by_name["mapper.text"]
+    assert image["parent"] == text["parent"] == enqueue["id"]
+    assert image["counters"] == {"tokens": BS * (cfg.num_patches + int(cfg.class_token))}
+    assert text["counters"] == {"tokens": BS * cfg.context_length}
+    if heads:
+        assert by_name["visual.head"]["parent"] == image["id"] and cfg.vision_seq_len == 25
