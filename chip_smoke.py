@@ -83,8 +83,10 @@ model families' published widths:
   first loss held to the plain forward on the CPU.
 
 Phases, each of which stops the script with a non-zero exit when it fails:
-device, build, K1 vs plain, K3 vs plain, K2 vs plain, K4 vs plain, main
-path, tower parity, times, sdpa path, K1 at the ResNet text shapes, RN50
+device, build, K1 vs plain, K3 vs plain, K2 vs plain, K4 vs plain, block
+fused vs plain (the dense epilogue and the LayerNorm of `ops/block_fused.py`
+held to the eager chain and timed beside it at the ViT-L/14 and SigLIP
+So400m/384 towers' shapes), main path, tower parity, times, sdpa path, K1 at the ResNet text shapes, RN50
 main path, RN tower parity, convert, index build, combine IVF-int8 build,
 index, served path, recall, query times, IVF-PQ checks, combine IVF-PQ,
 combine IVF-int8, arrow, surface, end2end, filter, client, mclip, pod and
@@ -167,6 +169,13 @@ SURFACE_API = {"clip_inference": ("inference.main", "main"), "clip_index": ("ind
 RESIZE_BATCH, RESIZE_FROM, RESIZE_TO, RESIZE_ATOL = 32, (480, 640), 224, 2e-5
 # the card's published peaks (H100 SXM data sheet): HBM bytes/s, dense bf16 FLOP/s, SMs
 HBM_BPS, BF16_FLOPS, SMS = 3.35e12, 989e12, 132
+# the block's fused passes (`ops/block_fused.py`) at the benchmark cells' towers, batch 256:
+# tower -> (rows, width, MLP width, activation, LayerNorm eps)
+FUSED_TOWERS = {"vit-l-14 image": (BATCH * 257, 1024, 4096, "quick_gelu", 1e-5),
+                "vit-l-14 text": (BATCH * 77, 768, 3072, "quick_gelu", 1e-5),
+                "siglip image": (BATCH * 729, 1152, 4304, "gelu_tanh", 1e-6),
+                "siglip text": (BATCH * 64, 1152, 4304, "gelu_tanh", 1e-6)}
+FUSED_MIN_EQUAL = 0.999  # share of bf16 elements equal to the eager chain's where an activation runs
 
 
 class PhaseError(Exception):
@@ -400,6 +409,98 @@ def phase_k4(adc) -> float:
     return worst
 
 
+def bf16_ulp(x):
+    """One bf16 ulp at |x| (8 significant bits), in f32."""
+    import torch
+
+    _, e = torch.frexp(x.float().abs())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), (e - 8).to(torch.int32))
+
+
+def time_pair(kern, plain) -> tuple[float, float]:
+    """ms per call of a kernel and of its plain version, in turns (plain,
+    kernel, kernel, plain) after a warm-up."""
+    for fn in (kern, plain):
+        fn()
+    times: dict[str, list[float]] = {"kern": [], "plain": []}
+    for name, fn in (("plain", plain), ("kern", kern), ("kern", kern), ("plain", plain)):
+        times[name].append(cuda_ms(fn, 10))
+    return float(np.mean(times["kern"])), float(np.mean(times["plain"]))
+
+
+def phase_block_fused(block_fused, gpu: str) -> dict:
+    """The block's two fused kernels against their plain versions (the eager
+    chain, run on the card) at each tower of the two benchmark cells, bf16
+    batch 256: every epilogue of a block (q/k/v: bias and cast; wo and w_out:
+    the residual besides; w_in: the activation) and both LayerNorms.  Bars:
+    without an activation bit for bit; with one, at most one bf16 ulp and
+    equal on ≥ 99.9 % of the elements; LayerNorm within one bf16 ulp, or
+    1e-6 where an output near 0 meets f32 statistics summed in another
+    order.  Each is timed beside the eager chain and its byte bound (every
+    byte read and written once at the HBM rate).  Returns the kernels line's
+    numbers: per tower, one block's epilogues and LayerNorms summed."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(18)
+    bf16 = torch.bfloat16
+    out = {"epilogue": {"max_abs_err": 0.0, "towers": {}}, "layernorm": {"max_abs_err": 0.0, "towers": {}}}
+    for tower, (rows, w, mlp, act, eps) in FUSED_TOWERS.items():
+        x = torch.randn(rows, w, generator=gen, device="cuda").to(bf16)
+        cases = [("qkv", w, None, None)] * 3 + [("wo", w, None, x), ("w_in", mlp, act, None), ("w_out", w, None, x)]
+        sums = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+        timed: dict[str, tuple[float, float]] = {}
+        for name, n, a, res in cases:
+            acc = torch.randn(rows, n, generator=gen, device="cuda") * 2.5
+            bias = torch.randn(n, generator=gen, device="cuda") * 0.5
+            kern = lambda: block_fused.dense_epilogue(acc, bias, act=a, residual=res, dtype=bf16)  # noqa: E731
+            plain = lambda: block_fused.dense_epilogue_reference(acc, bias, a, res, bf16)  # noqa: E731
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs()
+            where = f"{tower} {name} ({rows}, {n}) act={a} residual={res is not None}"
+            if a is None:
+                check(torch.equal(got, want), f"dense_epilogue differs from the eager chain at {where}")
+            else:
+                check(bool((diff <= bf16_ulp(want)).all()), f"dense_epilogue more than one ulp off at {where}")
+                equal = (diff == 0).float().mean().item()
+                check(equal >= FUSED_MIN_EQUAL, f"dense_epilogue equal on only {equal:.5f} at {where}")
+            out["epilogue"]["max_abs_err"] = max(out["epilogue"]["max_abs_err"], diff.max().item())
+            if name not in timed:
+                timed[name] = time_pair(kern, plain)
+            ms, plain_ms = timed[name]
+            bound = 1e3 * (rows * n * (4 + 2 + (2 if res is not None else 0)) + 4 * n) / HBM_BPS
+            sums["ms"] += ms
+            sums["plain_ms"] += plain_ms
+            sums["bound_ms"] += bound
+            print(f"  [{gpu}] dense_epilogue {where}: {ms:.4f} ms/call, eager chain {plain_ms:.4f}, bound "
+                  f"{bound:.4f} (bytes); max abs vs eager {diff.max().item():.3e}")
+            del acc, got, want, diff
+        out["epilogue"]["towers"][tower] = sums
+        scale = torch.randn(w, generator=gen, device="cuda") * 0.2 + 1
+        shift = torch.randn(w, generator=gen, device="cuda") * 0.1
+        kern = lambda: block_fused.layernorm(x, scale, shift, eps)  # noqa: E731
+        plain = lambda: block_fused.layernorm_reference(x, scale, shift, eps)  # noqa: E731
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        check(bool(((diff <= bf16_ulp(want)) | (diff <= 1e-6)).all()),
+              f"layernorm more than one ulp off at {tower} ({rows}, {w}) eps={eps}")
+        out["layernorm"]["max_abs_err"] = max(out["layernorm"]["max_abs_err"], diff.max().item())
+        ms, plain_ms = time_pair(kern, plain)
+        bound = 1e3 * (rows * w * 4 + 8 * w) / HBM_BPS
+        print(f"  [{gpu}] layernorm {tower} ({rows}, {w}) eps={eps}: {ms:.4f} ms/call, eager chain "
+              f"{plain_ms:.4f}, bound {bound:.4f} (bytes); max abs vs eager {diff.max().item():.3e}")
+        out["layernorm"]["towers"][tower] = {"ms": 2 * ms, "plain_ms": 2 * plain_ms, "bound_ms": 2 * bound}
+        del x, got, want, diff
+        torch.cuda.empty_cache()
+    for key, what in (("epilogue", "6 epilogues"), ("layernorm", "2 LayerNorms")):
+        print(f"  [{gpu}] a block's {what}, ms (kernel / eager chain / bound): " + "; ".join(
+            f"{t} {v['ms']:.4f} / {v['plain_ms']:.4f} / {v['bound_ms']:.4f}"
+            for t, v in out[key]["towers"].items()))
+    return out
+
+
 def write_corpus(folder: str):
     from PIL import Image
 
@@ -414,8 +515,8 @@ def write_corpus(folder: str):
 
 def phase_main_path(kernels: dict, gpu: str) -> dict:
     """The `inference` entry point over 512 JPEG+caption samples at
-    ViT-L/14 bf16 b256; returns the launch counts of that run (only K1 is on
-    this path)."""
+    ViT-L/14 bf16 b256; returns the launch counts of that run (K1 and the
+    block's fused kernels are on this path)."""
     from clip_retrieval_tpu_torch.inference.main import main as clip_inference
 
     shutil.rmtree(WORK_DIR, ignore_errors=True)
@@ -452,6 +553,9 @@ def phase_main_path(kernels: dict, gpu: str) -> dict:
     expected = 2 * (24 + 12)  # 2 batches x (vision + text layers)
     check(launches == expected, f"K1 launched {launches} times on the main path, expected {expected}")
     check(counts["k2"] == counts["k3"] == counts["k4"] == 0, f"another kernel launched on the embedding path: {counts}")
+    # a batch: 6 epilogues and 2 LayerNorms a block, the patch dense, ln_pre, ln_post and ln_final
+    fused = {"epilogue": 2 * (6 * (24 + 12) + 1), "layernorm": 2 * (2 * (24 + 12) + 3)}
+    check(all(counts[k] == v for k, v in fused.items()), f"fused launches {counts}, expected {fused}")
     return counts
 
 
@@ -597,7 +701,8 @@ def phase_sdpa(flash, kernels: dict, gpu: str) -> tuple[dict, float, float, floa
     out = sdpa(q, k, v)
     torch.cuda.synchronize()
     counts = read_counts(kernels)
-    check(counts == {"k1": 0, "k2": 1, "k3": 0, "k4": 0}, f"sdpa launched {counts}, expected K2 once")
+    check(counts == {"k1": 0, "k2": 1, "k3": 0, "k4": 0, "epilogue": 0, "layernorm": 0},
+          f"sdpa launched {counts}, expected K2 once")
     ref = flash.flash_attention_reference(q.float(), k.float(), v.float())
     err = (out.float() - ref).abs().max().item()
     check(err <= BF16_MAX_ABS, f"sdpa output off by {err:.3e}")
@@ -2101,7 +2206,9 @@ def phase_mclip(int8_folder: str, kernels: dict, gpu: str) -> dict:
     check(embs.shape == (SAMPLES, DIM) and embs.dtype == np.float16 and diff <= 1e-3,
           f"the mapper's M-CLIP embeddings {embs.shape} differ from the bundle's by {diff}")
     mapper_counts = read_counts(kernels)
-    check(mapper_counts == {"k1": 0, "k2": 0, "k3": 0, "k4": 0}, f"the M-CLIP mapper launched {mapper_counts}")
+    check(mapper_counts["k1"] == mapper_counts["k2"] == mapper_counts["k3"] == mapper_counts["k4"] == 0
+          and mapper_counts["epilogue"] > 0 and mapper_counts["layernorm"] > 0,
+          f"the M-CLIP mapper launched {mapper_counts}: expected only the block's fused kernels (f32)")
     print(f"  [{gpu}] mapper with use_mclip over {SAMPLES} captions (2 batches of {BATCH}, text only): "
           f"{SAMPLES / t_map:.1f} captions/s, max abs vs the bundle {diff:.2e}; launches {mapper_counts}")
     del mapper
@@ -2301,8 +2408,10 @@ def phase_sharded_flat(index, originals, sample_ids, kernels: dict, gpu: str) ->
     return counts
 
 
-RANK_CODE = ("import sys\nfrom clip_retrieval_tpu_torch import cli\nfrom clip_retrieval_tpu_torch.ops import flash\n"
-             "cli.main(sys.argv[1:])\nprint('K1_LAUNCHES', flash.flash_attention_packed.launches, flush=True)\n")
+RANK_CODE = ("import sys\nfrom clip_retrieval_tpu_torch import cli\n"
+             "from clip_retrieval_tpu_torch.ops import block_fused, flash\ncli.main(sys.argv[1:])\n"
+             "print('K1_LAUNCHES', flash.flash_attention_packed.launches, block_fused.dense_epilogue.launches, "
+             "block_fused.layernorm.launches, flush=True)\n")
 
 
 def phase_ranks(gpu: str) -> tuple[dict, dict]:
@@ -2352,12 +2461,12 @@ def phase_ranks(gpu: str) -> tuple[dict, dict]:
                 p.kill()
                 p.wait()
     wall = time.perf_counter() - t0
-    k1 = {}
+    k1, fused = {}, {}
     for name, p in procs.items():
         check(p.returncode == 0, f"rank process {name} exited {p.returncode}:\n{logs[name][-3000:]}")
         lines = [ln for ln in logs[name].splitlines() if ln.startswith("K1_LAUNCHES")]
         check(len(lines) == 1, f"rank process {name} printed no K1 count")
-        k1[name] = int(lines[0].split()[1])
+        k1[name], *fused[name] = map(int, lines[0].split()[1:])
     per_rank = RANK_PARTITIONS // 2 * (24 + 12)  # 2 partitions of 128 samples, one batch each, per rank
     for name in ("pod0", "pod1", "slurm0", "slurm1"):
         check(k1[name] == per_rank, f"{name} launched K1 {k1[name]} times, expected {per_rank}")
@@ -2372,8 +2481,11 @@ def phase_ranks(gpu: str) -> tuple[dict, dict]:
           f"process, {RANK_PARTITIONS} partitions of {SAMPLES // RANK_PARTITIONS} samples at {MODEL} bf16: every "
           f"rank's partitions equal the sequential ones bit for bit; K1 launches by process {k1}; wall {wall:.1f} s "
           f"for the five processes at once (start, model init, decode, inference)")
-    zero = {"k1": 0, "k2": 0, "k3": 0, "k4": 0}
-    return {**zero, "k1": k1["pod0"] + k1["pod1"]}, {**zero, "k1": k1["slurm0"] + k1["slurm1"]}
+    def path(a: str, b: str) -> dict:
+        return {"k1": k1[a] + k1[b], "k2": 0, "k3": 0, "k4": 0, "epilogue": fused[a][0] + fused[b][0],
+                "layernorm": fused[a][1] + fused[b][1]}
+
+    return path("pod0", "pod1"), path("slurm0", "slurm1")
 
 
 def phase_train(kernels: dict, gpu: str) -> dict:
@@ -2450,12 +2562,12 @@ def run() -> int:
         return 2
     from clip_retrieval_tpu_torch.inference.mapper import ClipMapper
     from clip_retrieval_tpu_torch.native import get_adc_lib
-    from clip_retrieval_tpu_torch.ops import adc_scan, cuda_build, flash, int8scan
+    from clip_retrieval_tpu_torch.ops import adc_scan, block_fused, cuda_build, flash, int8scan
 
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 references stay f32, the f32 int8 product exact
     torch.backends.cudnn.allow_tf32 = False
     kernels = {"k1": flash.flash_attention_packed, "k2": flash.flash_attention, "k3": int8scan.int8_gather_scan,
-               "k4": adc_scan.adc_scan}
+               "k4": adc_scan.adc_scan, "epilogue": block_fused.dense_epilogue, "layernorm": block_fused.layernorm}
 
     phase = "device"
     try:
@@ -2484,6 +2596,9 @@ def run() -> int:
 
         phase = "K4 vs plain"
         k4_err = phase_k4(adc_scan)
+
+        phase = "block fused vs plain"
+        fused = phase_block_fused(block_fused, gpu)
 
         phase = "main path"
         inference_counts = phase_main_path(kernels, gpu)
@@ -2633,6 +2748,11 @@ def run() -> int:
              max(k4_err, k4["max_abs_err"]), k4["ms"], k4["plain_ms"], k4["bound_ms"], k4["bound_by"],
              k4["library_ms"]),
         ]
+        for key, name in (("epilogue", "dense_epilogue"), ("layernorm", "layernorm")):
+            siglip = fused[key]["towers"]["siglip image"]
+            rows.append((key, name, "block_fused.cu", "none: XLA fuses these ops on the TPU",
+                         fused[key]["max_abs_err"], siglip["ms"], siglip["plain_ms"], siglip["bound_ms"], "bytes",
+                         None))
         line = []
         for key, name, src, replaces, err, ms, p_ms, bound, by, lib in rows:
             launches = by_path(key)
@@ -2651,6 +2771,8 @@ def run() -> int:
         line[0]["max_abs_err"] = max(line[0]["max_abs_err"], *(t[3] for t in k1_rn_text.values()))
         print(f"  RN50 / RN50x64 img/s: {rn_rates}; RN50 image tower device-time shares: {rn_shares}")
         line[3]["at_b1"] = k4["at_b1"]  # single-query worklists: nearly all of K4's launches
+        for row, key in ((line[4], "epilogue"), (line[5], "layernorm")):  # ms etc.: one SigLIP image block's calls
+            row["per_block_by_tower"] = fused[key]["towers"]
         line[2]["sharded_search_p50_ms"] = {f"{t} {r} B={b}": v for (t, r, b), v in sharded_p50.items()}
     except Exception as e:  # every phase failure ends the run with its phase named
         import traceback

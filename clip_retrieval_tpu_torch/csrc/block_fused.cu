@@ -1,0 +1,328 @@
+// A transformer block's elementwise work in two passes over device memory, on
+// Hopper (sm_90a): the epilogue after each dense and a one-pass LayerNorm.
+//
+// They replace no Pallas kernel of `clip_retrieval_tpu/`: on the TPU, XLA
+// fuses the bias add, the activation, the residual add and the casts into the
+// matmul's consumer, and LayerNorm's statistics and affine step into one
+// pass, so the JAX package never wrote them by hand.  Eager PyTorch runs each
+// of those ops as its own pass, and at ViT-L/14 and SigLIP So400m they moved
+// more bytes than the GEMMs took time for.
+//
+// What bounds them: bytes.  Both do a few operations per byte (the tanh GELU
+// about 20 FLOPs per 8 bytes), far below the ~295 FLOPs a byte at which an
+// H100's tensor cores would be the limit.  So the design moves each element
+// once, in 16-byte accesses, and keeps every intermediate in registers:
+//
+// - `crt_dense_epilogue` reads the f32 accumulator that cuBLAS wrote (4 bytes
+//   an element), adds the f32 bias, applies the activation, adds the residual
+//   (2 bytes in bf16) and writes the output dtype (2 bytes in bf16): 6 or 8
+//   bytes an element against the eager chain's 14 to 28.  A thread owns 8
+//   consecutive elements of the flat (M·N) tensor: two float4 loads of the
+//   accumulator, one 16-byte load of a bf16 residual and one 16-byte store.
+//   The bias is read as two float4 when N % 8 == 0 (the chunk then never
+//   crosses a row), element by element with the column wrapping otherwise;
+//   the last M·N % 8 elements, or every chunk where a pointer is not 16-byte
+//   aligned, take the scalar path.
+// - `crt_layernorm` gives each row one warp; the row stays in registers
+//   (8 elements a lane per 256 of width, 2048 wide at most), so it is read
+//   once and written once: 4 bytes an element in bf16 against the eager
+//   chain's 20 (upcast, normalise in f32, cast back).  Mean and variance are
+//   two warp-shuffle sums over the registers (the variance about the mean, not
+//   Welford's running update), rsqrtf as PyTorch's kernel, and the affine step
+//   gamma·(rstd·(x − mean)) + beta in f32.
+//
+// Rounding follows the eager chain, so the port keeps the JAX package's
+// casting points: t = round(acc + b); each activation rounds where its eager
+// ops store a tensor (quick_gelu: round(1.702·t), round(sigmoid), round of
+// the product; GELU and tanh GELU once, from the same f32 formulas as
+// PyTorch's CUDA kernels); then round(res + t).  In f32 the rounding is the
+// identity.  Without an activation the result is bit-identical to the eager
+// chain's.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kChunk = 8;              // elements a thread owns at once
+constexpr int kEpilogueThreads = 256;
+constexpr int kLnWarps = 4;            // rows per LayerNorm block
+
+enum Act { kNone = 0, kQuickGelu = 1, kGelu = 2, kGeluTanh = 3 };
+
+// where the eager chain stores a tensor of type T: round to T and back
+template <typename T>
+__device__ __forceinline__ float rnd(float x);
+template <>
+__device__ __forceinline__ float rnd<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ float rnd<bf16>(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float x) { return __float2bfloat16_rn(x); }
+
+__device__ __forceinline__ void load8(const float* p, float* v) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+__device__ __forceinline__ void load8(const bf16* p, float* v) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void store8(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+__device__ __forceinline__ void store8(bf16* p, const float* v) {
+  uint4 u;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  *reinterpret_cast<uint4*>(p) = u;
+}
+
+// The activation on t (already rounded to T), with the eager ops' own
+// roundings inside; the caller rounds the result.  The f32 formulas are those
+// of PyTorch's CUDA kernels (sigmoid, and GeluCUDAKernelImpl for both GELUs).
+template <typename T, int ACT>
+__device__ __forceinline__ float activation(float t) {
+  if constexpr (ACT == kQuickGelu) {
+    const float u = rnd<T>(t * 1.702f);                 // 1.702 * x
+    const float s = rnd<T>(1.0f / (1.0f + expf(-u)));    // torch.sigmoid
+    return t * s;
+  } else if constexpr (ACT == kGelu) {
+    constexpr float kAlpha = 0.70710678118654752440;     // M_SQRT1_2
+    return t * 0.5f * (1.0f + erff(t * kAlpha));
+  } else if constexpr (ACT == kGeluTanh) {
+    constexpr float kBeta = 1.41421356237309504880 * 1.12837916709551257390 * 0.5;  // M_SQRT2 * M_2_SQRTPI / 2
+    constexpr float kKappa = 0.044715;
+    const float cube = t * t * t;
+    const float inner = kBeta * (t + kKappa * cube);
+    return 0.5f * t * (1.0f + tanhf(inner));
+  } else {
+    return t;
+  }
+}
+
+template <typename T, int ACT>
+__device__ __forceinline__ float epilogue_one(float acc, float b, bool has_res, float res) {
+  float t = rnd<T>(acc + b);
+  if constexpr (ACT != kNone) t = rnd<T>(activation<T, ACT>(t));
+  return has_res ? res + t : t;
+}
+
+// acc (total = rows·n, f32), bias (n, f32, or null), res (total, T, or null)
+// → out (total, T).  vec: every pointer 16-byte aligned.
+template <typename T, int ACT>
+__global__ void __launch_bounds__(kEpilogueThreads)
+    dense_epilogue_kernel(const float* __restrict__ acc, const float* __restrict__ bias, const T* __restrict__ res,
+                          T* __restrict__ out, long long total, int n, int vec) {
+  const long long e0 = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * kChunk;
+  const bool has_res = res != nullptr;
+  if (e0 < total) {
+    const int col0 = (int)(e0 % n);
+    if (vec && e0 + kChunk <= total) {
+      float a[kChunk], b[kChunk], r[kChunk];
+      load8(acc + e0, a);
+      if (bias == nullptr) {
+#pragma unroll
+        for (int k = 0; k < kChunk; ++k) b[k] = 0.0f;
+      } else if (n % kChunk == 0) {
+        load8(bias + col0, b);
+      } else {
+        int col = col0;
+#pragma unroll
+        for (int k = 0; k < kChunk; ++k) {
+          b[k] = bias[col];
+          if (++col == n) col = 0;
+        }
+      }
+      if (has_res) {
+        load8(res + e0, r);
+      } else {
+#pragma unroll
+        for (int k = 0; k < kChunk; ++k) r[k] = 0.0f;
+      }
+#pragma unroll
+      for (int k = 0; k < kChunk; ++k) a[k] = epilogue_one<T, ACT>(a[k], b[k], has_res, r[k]);
+      store8(out + e0, a);
+    } else {  // the ragged last chunk, or unaligned pointers
+      int col = col0;
+      for (long long e = e0; e < e0 + kChunk && e < total; ++e) {
+        const float b = bias == nullptr ? 0.0f : bias[col];
+        const float r = has_res ? to_f32(res[e]) : 0.0f;
+        out[e] = from_f32<T>(epilogue_one<T, ACT>(acc[e], b, has_res, r));
+        if (++col == n) col = 0;
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+template <typename T, int MAXC>
+__device__ __forceinline__ void layernorm_row(const T* __restrict__ xr, const float* __restrict__ gamma,
+                                              const float* __restrict__ beta, T* __restrict__ yr, int w, float eps,
+                                              int vec, int lane) {
+  float v[MAXC][kChunk];
+  float sum = 0.0f;
+#pragma unroll
+  for (int j = 0; j < MAXC; ++j) {
+    const int e0 = (j * 32 + lane) * kChunk;
+    if (vec && e0 < w) {
+      load8(xr + e0, v[j]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < kChunk; ++k) v[j][k] = e0 + k < w ? to_f32(xr[e0 + k]) : 0.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) sum += v[j][k];
+  }
+  const float mean = warp_sum(sum) / w;
+  float sq = 0.0f;
+#pragma unroll
+  for (int j = 0; j < MAXC; ++j) {
+    const int e0 = (j * 32 + lane) * kChunk;
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {
+      const float d = e0 + k < w ? v[j][k] - mean : 0.0f;
+      sq += d * d;
+    }
+  }
+  const float rstd = rsqrtf(warp_sum(sq) / w + eps);
+#pragma unroll
+  for (int j = 0; j < MAXC; ++j) {
+    const int e0 = (j * 32 + lane) * kChunk;
+    if (e0 >= w) continue;
+    float g[kChunk], b[kChunk], o[kChunk];
+    if (vec) {
+      load8(gamma + e0, g);
+      load8(beta + e0, b);
+    } else {
+#pragma unroll
+      for (int k = 0; k < kChunk; ++k) {
+        g[k] = e0 + k < w ? gamma[e0 + k] : 0.0f;
+        b[k] = e0 + k < w ? beta[e0 + k] : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) o[k] = g[k] * (rstd * (v[j][k] - mean)) + b[k];
+    if (vec) {
+      store8(yr + e0, o);
+    } else {
+      for (int k = 0; k < kChunk && e0 + k < w; ++k) yr[e0 + k] = from_f32<T>(o[k]);
+    }
+  }
+}
+
+// One warp per row of width w ≤ 256·MAXC; lane l holds the chunks l, l + 32,
+// … of 8 elements.  vec: w % 8 == 0 and every pointer 16-byte aligned.
+template <typename T, int MAXC>
+__global__ void __launch_bounds__(kLnWarps * 32)
+    layernorm_kernel(const T* __restrict__ x, const float* __restrict__ gamma, const float* __restrict__ beta,
+                     T* __restrict__ y, long long rows, int w, float eps, int vec) {
+  const long long row = (long long)blockIdx.x * kLnWarps + threadIdx.x / 32;
+  if (row < rows) layernorm_row<T, MAXC>(x + row * w, gamma, beta, y + row * w, w, eps, vec, threadIdx.x % 32);
+}
+
+bool aligned16(const void* p) { return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+template <typename T>
+int launch_epilogue(const void* acc, const void* bias, const void* res, void* out, long long rows, int n, int act,
+                    cudaStream_t stream) {
+  const long long total = rows * n;
+  const long long chunks = (total + kChunk - 1) / kChunk;
+  const long long blocks = (chunks + kEpilogueThreads - 1) / kEpilogueThreads;
+  const int vec = aligned16(acc) && aligned16(bias) && aligned16(res) && aligned16(out);
+  const auto* a = static_cast<const float*>(acc);
+  const auto* b = static_cast<const float*>(bias);
+  const auto* r = static_cast<const T*>(res);
+  auto* o = static_cast<T*>(out);
+  const dim3 grid((unsigned)blocks), block(kEpilogueThreads);
+  switch (act) {
+    case kNone: dense_epilogue_kernel<T, kNone><<<grid, block, 0, stream>>>(a, b, r, o, total, n, vec); break;
+    case kQuickGelu: dense_epilogue_kernel<T, kQuickGelu><<<grid, block, 0, stream>>>(a, b, r, o, total, n, vec); break;
+    case kGelu: dense_epilogue_kernel<T, kGelu><<<grid, block, 0, stream>>>(a, b, r, o, total, n, vec); break;
+    case kGeluTanh: dense_epilogue_kernel<T, kGeluTanh><<<grid, block, 0, stream>>>(a, b, r, o, total, n, vec); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_layernorm(const void* x, const void* gamma, const void* beta, void* y, long long rows, int w, float eps,
+                     cudaStream_t stream) {
+  const int vec = w % kChunk == 0 && aligned16(x) && aligned16(gamma) && aligned16(beta) && aligned16(y);
+  const dim3 grid((unsigned)((rows + kLnWarps - 1) / kLnWarps)), block(kLnWarps * 32);
+  const auto* xp = static_cast<const T*>(x);
+  const auto* g = static_cast<const float*>(gamma);
+  const auto* b = static_cast<const float*>(beta);
+  auto* yp = static_cast<T*>(y);
+  if (w <= 256 * 4) {
+    layernorm_kernel<T, 4><<<grid, block, 0, stream>>>(xp, g, b, yp, rows, w, eps, vec);
+  } else if (w <= 256 * 6) {
+    layernorm_kernel<T, 6><<<grid, block, 0, stream>>>(xp, g, b, yp, rows, w, eps, vec);
+  } else if (w <= 256 * 8) {
+    layernorm_kernel<T, 8><<<grid, block, 0, stream>>>(xp, g, b, yp, rows, w, eps, vec);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// acc: contiguous (rows, n) f32; bias: (n,) f32 or null; res: contiguous
+// (rows, n) of the output dtype or null; out: contiguous (rows, n).  act: 0
+// none, 1 quick_gelu, 2 gelu, 3 gelu_tanh.  dtype: 0 = float32, 1 = bfloat16.
+// Returns a cudaError_t value (0 on success); a refused launch never runs.
+int crt_dense_epilogue(const void* acc, const void* bias, const void* res, void* out, long long rows, int n, int act,
+                       int dtype, void* stream) {
+  if (rows <= 0 || n <= 0) return 0;
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_epilogue<float>(acc, bias, res, out, rows, n, act, s);
+  if (dtype == 1) return launch_epilogue<bf16>(acc, bias, res, out, rows, n, act, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// x, y: contiguous (rows, w) of one dtype (0 = float32, 1 = bfloat16), w ≤
+// 2048; gamma, beta: (w,) f32.  Returns a cudaError_t value as above.
+int crt_layernorm(const void* x, const void* gamma, const void* beta, void* y, long long rows, int w, float eps,
+                  int dtype, void* stream) {
+  if (rows <= 0 || w <= 0) return 0;
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_layernorm<float>(x, gamma, beta, y, rows, w, eps, s);
+  if (dtype == 1) return launch_layernorm<bf16>(x, gamma, beta, y, rows, w, eps, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+const char* crt_cuda_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
+
+}  // extern "C"

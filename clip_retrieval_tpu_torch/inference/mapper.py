@@ -24,7 +24,10 @@ with "image_tensor" (uint8 HWC) / "text_tokens" → output dict with
   for the interpreter lock or a core), and `mapper.readback`, the
   embeddings' read-back to the host.  Inside `mapper.enqueue`,
   `mapper.image` and `mapper.text` time the queuing of each CLIP tower,
-  with the counter `tokens`: the rows the tower runs × its sequence length.
+  with the counter `tokens`: the rows the tower runs × its sequence length,
+  and the counters `fused` (launches of `ops/block_fused.py`'s kernels
+  while the tower was queued) and `eager` (its dense and LayerNorm calls that
+  took the eager chain instead).
 """
 
 from __future__ import annotations
@@ -37,11 +40,19 @@ import torch
 
 from ..models import clip as tclip
 from ..models import zoo
+from ..ops import block_fused, cuda_build
 from ..utils import trace
 from ..utils.device import resolve_device
 from .staging import STAGED_KEY
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _fused_counts(before: tuple[int, int]) -> dict[str, int]:
+    """The tower's fused-kernel launches and eager-chain dense/LayerNorm
+    calls since `before` (`block_fused.counts()`)."""
+    fused, eager = block_fused.counts()
+    return {"fused": fused - before[0], "eager": eager - before[1]}
 
 
 class ClipMapper:
@@ -60,6 +71,9 @@ class ClipMapper:
         device: str | torch.device = "cuda",
     ):
         self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            # the towers' kernels (K1, the block's fused passes), built side by side on a checkout's first run
+            cuda_build.build_all(("flash_packed", "block_fused"))
         self.mclip = None
         if use_mclip:
             # the reference mapper swaps the text path for a multilingual
@@ -113,26 +127,28 @@ class ClipMapper:
             if self.enable_image:
                 images = batch["image_tensor"]
                 with trace.span("mapper.image") as tower:
+                    before = block_fused.counts()
                     if staged_n is None:
                         images, n = self.pad_batch(images)
                         images = self.to_device(images)
                     else:
                         n = staged_n
                     img = self.embed_images(images)[:n]
-                    tower.count(tokens=images.shape[0] * self.model.cfg.vision_seq_len)
+                    tower.count(tokens=images.shape[0] * self.model.cfg.vision_seq_len, **_fused_counts(before))
             if self.enable_text and self.mclip is not None:
                 out["text_embs"] = self.mclip(batch["text"])
                 out["text"] = batch["text"]
             elif self.enable_text:
                 tokens = batch["text_tokens"]
                 with trace.span("mapper.text") as tower:
+                    before = block_fused.counts()
                     if staged_n is None:
                         tokens, n = self.pad_batch(tokens.astype(np.int32))
                         tokens = self.to_device(tokens)
                     else:
                         n = staged_n
                     txt = self.embed_texts(tokens)[:n]
-                    tower.count(tokens=tokens.shape[0] * tokens.shape[1])
+                    tower.count(tokens=tokens.shape[0] * tokens.shape[1], **_fused_counts(before))
             enqueue.count(cpu_ns=time.thread_time_ns() - cpu_ns)
         with trace.span("mapper.readback"):
             if img is not None:

@@ -15,17 +15,21 @@ package has no SigLIP, so only `loaders.convert_siglip_state_dict` fills it.
 Casting points follow the JAX package: weights are cast to the compute dtype
 for each matmul, which accumulates in f32; biases and LayerNorm are applied
 in f32, and the result is cast back to the compute dtype.  The projections
-return f32 features, and `l2_normalize` works in f32.
+return f32 features, and `l2_normalize` works in f32.  After each product,
+bias, cast, activation and residual add run as one pass, and each LayerNorm
+as one pass (`ops/block_fused.py`: kernels on CUDA tensors, the eager chain
+on CPU tensors); a call that autograd records (an input requires grad, as
+in the train step) takes the eager chain instead.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..ops import attention as attn_ops
+from ..ops import block_fused
 from ..utils import trace
 from ..utils.device import resolve_device
 from .configs import CLIPConfig, port_config
@@ -46,8 +50,16 @@ class LayerNorm(nn.Module):
         self.bias = _param(width, device=device)
 
     def forward(self, x: torch.Tensor, eps: float) -> torch.Tensor:
-        y = F.layer_norm(x.float(), x.shape[-1:], self.scale.float(), self.bias.float(), eps)
-        return y.to(x.dtype)
+        if _differentiable(x, self.scale, self.bias):
+            block_fused.record_eager()
+            return block_fused.layernorm_reference(x, self.scale, self.bias, eps)
+        return block_fused.layernorm(x.contiguous(), self.scale, self.bias, eps)
+
+
+def _differentiable(*tensors: torch.Tensor | None) -> bool:
+    """Whether autograd records this call: the kernels of `ops/block_fused.py`
+    have no backward, so such a call takes the eager chain."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
 
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -64,21 +76,25 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.float(), w.float())
 
 
-def _dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
+def _dense(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    b: torch.Tensor | None = None,
+    *,
+    act: str | None = None,
+    residual: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """residual + act(x @ w + b) in x's dtype: the f32 product, then one fused
+    pass (`ops/block_fused.py`) that adds the bias in f32, rounds to x's
+    dtype, applies the activation and adds the residual."""
     y = matmul_f32(x, w)
-    if b is not None:
-        y = y + b.float()
-    return y.to(x.dtype)
+    if _differentiable(x, w, b, residual):
+        block_fused.record_eager()
+        return block_fused.dense_epilogue_reference(y, b, act, residual, x.dtype)
+    return block_fused.dense_epilogue(y, b, act=act, residual=residual, dtype=x.dtype)
 
 
-def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
-    if kind == "quick_gelu":
-        return x * torch.sigmoid(1.702 * x)
-    if kind == "gelu":
-        return F.gelu(x, approximate="none")
-    if kind == "gelu_tanh":
-        return F.gelu(x, approximate="tanh")
-    raise ValueError(f"unknown act {kind}")
+_act = block_fused.activation
 
 
 class Attention(nn.Module):
@@ -118,11 +134,11 @@ class Block(nn.Module):
         k = _dense(y, a.wk, a.bk)
         v = _dense(y, a.wv, a.bv)
         o = attn_ops.sdpa_packed(q, k, v, self.heads, causal=self.causal, impl=attn_impl)
-        x = x + _dense(o, a.wo, a.bo)
+        x = _dense(o, a.wo, a.bo, residual=x)
         y = self.ln_2(x, self.eps)
         m = self.mlp
-        y = _act(_dense(y, m.w_in, m.b_in), self.act)
-        return x + _dense(y, m.w_out, m.b_out)
+        y = _dense(y, m.w_in, m.b_in, act=self.act)
+        return _dense(y, m.w_out, m.b_out, residual=x)
 
 
 def _mlp_dim(width: int, mlp_ratio: float) -> int:
@@ -165,7 +181,7 @@ class MapHead(nn.Module):
         o = attn_ops.sdpa(split(q).expand(b, -1, -1, -1), split(k), split(v), impl="xla")
         h = _dense(o.reshape(b, w), a.wo, a.bo)
         m = self.mlp
-        y = _act(_dense(self.ln(h, self.eps), m.w_in, m.b_in), self.act)
+        y = _dense(self.ln(h, self.eps), m.w_in, m.b_in, act=self.act)
         return h.float() + matmul_f32(y, m.w_out) + m.b_out.float()
 
 

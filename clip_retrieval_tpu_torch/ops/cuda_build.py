@@ -82,21 +82,25 @@ def load_library(name: str, sources: list[str]) -> ctypes.CDLL:
         return lib
 
 
-def build_all() -> dict[str, float]:
-    """Build every kernel library of the package at once, one nvcc per
-    source started together; returns each library's build seconds.  Raises
-    the first failure after all builds have ended."""
+def build_all(names: tuple[str, ...] | None = None) -> dict[str, float]:
+    """Build the kernel libraries `names` (every one of the package by
+    default) at once, one nvcc per source started together; returns each
+    library's build seconds.  Raises the first failure after all builds have
+    ended."""
     import time
     from concurrent.futures import ThreadPoolExecutor
 
-    from . import adc_scan, flash, int8scan
+    from . import adc_scan, block_fused, flash, int8scan
 
     def timed(build):
         t0 = time.perf_counter()
         build()
         return time.perf_counter() - t0
 
-    build_fns = {"flash_packed": flash.build, "int8_scan": int8scan.build, "adc_scan": adc_scan.build}
+    build_fns = {"flash_packed": flash.build, "int8_scan": int8scan.build, "adc_scan": adc_scan.build,
+                 "block_fused": block_fused.build}
+    if names is not None:
+        build_fns = {name: build_fns[name] for name in names}
     with ThreadPoolExecutor(len(build_fns)) as pool:
         futures = {name: pool.submit(timed, fn) for name, fn in build_fns.items()}
         return {name: f.result() for name, f in futures.items()}

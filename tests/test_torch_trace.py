@@ -230,7 +230,8 @@ def test_threads_keep_their_own_parents_and_batches():
 @pytest.mark.parametrize("model,heads", [("test-tiny", 0), ("test-tiny-siglip", 1)])
 def test_tower_spans_count_tokens(model, heads):
     """A mapper call records `mapper.image` and `mapper.text` inside
-    `mapper.enqueue`, each counting rows × its sequence length; a SigLIP
+    `mapper.enqueue`, each counting rows × its sequence length and the fused
+    and eager dense/LayerNorm passes; a SigLIP
     image tower adds `visual.head` inside `mapper.image`, a CLIP one (the
     ViT-L/14 structure at test size) none."""
     m = ClipMapper(enable_image=True, enable_text=True, clip_model=model, batch_size=BS, device="cpu")
@@ -246,7 +247,55 @@ def test_tower_spans_count_tokens(model, heads):
                                      + ["visual.head"] * heads)
     enqueue, image, text = by_name["mapper.enqueue"], by_name["mapper.image"], by_name["mapper.text"]
     assert image["parent"] == text["parent"] == enqueue["id"]
-    assert image["counters"] == {"tokens": BS * (cfg.num_patches + int(cfg.class_token))}
-    assert text["counters"] == {"tokens": BS * cfg.context_length}
+    # on the CPU the dense and LayerNorm calls run the plain versions: no kernel launch, no eager chain
+    assert image["counters"] == {"tokens": BS * (cfg.num_patches + int(cfg.class_token)), "fused": 0, "eager": 0}
+    assert text["counters"] == {"tokens": BS * cfg.context_length, "fused": 0, "eager": 0}
     if heads:
         assert by_name["visual.head"]["parent"] == image["id"] and cfg.vision_seq_len == 25
+
+
+def _passes(cfg, tower: str) -> int:
+    """Dense and LayerNorm calls of one tower's forward in `models/clip.py`:
+    6 denses and 2 LayerNorms a block; the image tower adds the patch dense,
+    `ln_pre` where it has one and `ln_post`, a pooling head 5 denses and its
+    LayerNorm; the text tower adds `ln_final`."""
+    if tower == "text":
+        return 8 * cfg.text_layers + 1
+    head = 6 if cfg.pool == "map" else 0
+    return 8 * cfg.vision_layers + 1 + int(cfg.ln_pre) + 1 + head
+
+
+@pytest.mark.parametrize("model", ["test-tiny", "test-tiny-siglip"])
+def test_tower_spans_count_fused_and_eager_passes(model, monkeypatch):
+    """`fused` and `eager` are the differences of `block_fused`'s counters
+    over each tower's queuing: with every dense and LayerNorm counted as a
+    launch (as on the card), `fused` is the tower's number of them and
+    `eager` 0; with each counted as an eager-chain call, the other way round."""
+    from clip_retrieval_tpu_torch.ops import block_fused
+
+    m = ClipMapper(enable_image=True, enable_text=True, clip_model=model, batch_size=BS, device="cpu")
+    cfg = m.bundle.cfg
+    batch = {"image_tensor": np.zeros((2, cfg.image_size, cfg.image_size, 3), np.uint8),
+             "text_tokens": m.bundle.tokenize(["a cat"] * 2), "image_filename": ["f"] * 2, "text": ["a cat"] * 2}
+    want = {"image": _passes(cfg, "image"), "text": _passes(cfg, "text")}
+    for counted, other in (("fused", "eager"), ("eager", "fused")):
+        def counting(fn):
+            def wrapped(*args, **kwargs):
+                if counted == "fused":
+                    wrapped.launches += 1
+                else:
+                    block_fused.record_eager()
+                return fn(*args, **kwargs)
+
+            wrapped.launches = fn.launches
+            return wrapped
+
+        monkeypatch.setattr(block_fused, "dense_epilogue", counting(block_fused.dense_epilogue))
+        monkeypatch.setattr(block_fused, "layernorm", counting(block_fused.layernorm))
+        before = {s["id"] for s in trace.export()}
+        m(batch)
+        monkeypatch.undo()
+        spans = {s["name"]: s for s in trace.export() if s["id"] not in before}
+        for tower in ("image", "text"):
+            c = spans[f"mapper.{tower}"]["counters"]
+            assert c[counted] == want[tower] and c[other] == 0, (tower, c)
