@@ -73,7 +73,7 @@ class ClipMapper:
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # the towers' kernels (K1, the block's fused passes), built side by side on a checkout's first run
-            cuda_build.build_all(("flash_packed", "block_fused"))
+            cuda_build.build_all(tclip.KERNEL_LIBRARIES)
         self.mclip = None
         if use_mclip:
             # the reference mapper swaps the text path for a multilingual

@@ -20,6 +20,13 @@ bias, cast, activation and residual add run as one pass, and each LayerNorm
 as one pass (`ops/block_fused.py`: kernels on CUDA tensors, the eager chain
 on CPU tensors); a call that autograd records (an input requires grad, as
 in the train step) takes the eager chain instead.
+
+The dp×tp train step (`parallel/train.py`) runs these same towers on its
+slices of the weights.  Each `Block` and the text tower hold a communicator,
+`LOCAL` (the identity) unless the step attaches its own: `copy` after each
+LayerNorm, `reduce` on the f32 product of `wo` and `w_out` before their bias
+and residual, and `embed` for the text tower's token rows.  A block counts
+its heads from the width of its q projection, so a tp slice runs its own.
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ import torch
 from torch import nn
 
 from ..ops import attention as attn_ops
-from ..ops import block_fused
+from ..ops import block_fused, flash
 from ..utils import trace
 from ..utils.device import resolve_device
 from .configs import CLIPConfig, port_config
@@ -37,6 +44,8 @@ from .configs import CLIPConfig, port_config
 # CLIP preprocessing constants (openai/open_clip defaults)
 IMAGE_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], dtype=np.float32)
 IMAGE_STD = np.array([0.26862954, 0.26130258, 0.27577711], dtype=np.float32)
+# the kernel libraries the towers launch on CUDA tensors (`ops/cuda_build.py`)
+KERNEL_LIBRARIES = (flash.LIBRARY, block_fused.LIBRARY)
 
 
 def _param(*shape, device=None) -> nn.Parameter:
@@ -66,8 +75,7 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ w with w cast to x's dtype, accumulated and returned in f32
     (JAX's `preferred_element_type=float32`)."""
     w = w.to(x.dtype)
-    differentiable = torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)
-    if x.is_cuda and x.dtype != torch.float32 and not differentiable:
+    if x.is_cuda and x.dtype != torch.float32 and not _differentiable(x, w):
         # cuBLAS writes the f32 accumulator out without rounding it to x's
         # dtype (an `out_dtype` product; a train step takes the f32 product
         # of the same operands below, which autograd differentiates)
@@ -83,18 +91,39 @@ def _dense(
     *,
     act: str | None = None,
     residual: torch.Tensor | None = None,
+    reduce=None,
 ) -> torch.Tensor:
     """residual + act(x @ w + b) in x's dtype: the f32 product, then one fused
     pass (`ops/block_fused.py`) that adds the bias in f32, rounds to x's
-    dtype, applies the activation and adds the residual."""
+    dtype, applies the activation and adds the residual.  `reduce` (a
+    block's row-parallel products) sums the f32 product over tp first."""
     y = matmul_f32(x, w)
+    if reduce is not None:
+        y = reduce(y)
     if _differentiable(x, w, b, residual):
         block_fused.record_eager()
         return block_fused.dense_epilogue_reference(y, b, act, residual, x.dtype)
     return block_fused.dense_epilogue(y, b, act=act, residual=residual, dtype=x.dtype)
 
 
-_act = block_fused.activation
+class _Local:
+    """The towers' tensor-parallel hooks on a rank that holds every weight:
+    each is the identity (`parallel/train.py::_Comm` has the tp versions)."""
+
+    @staticmethod
+    def copy(x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    @staticmethod
+    def reduce(x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    @staticmethod
+    def embed(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        return table[ids]
+
+
+LOCAL = _Local()
 
 
 class Attention(nn.Module):
@@ -117,28 +146,32 @@ class Mlp(nn.Module):
 
 class Block(nn.Module):
     """Pre-LN transformer block; attention stays in the packed (B, S, W)
-    layout that the projections emit."""
+    layout that the projections emit.  `comm` holds the tensor-parallel
+    hooks (`LOCAL` unless the train step attaches its own)."""
 
     def __init__(self, width: int, mlp_dim: int, heads: int, act: str, eps: float, causal: bool, device=None):
         super().__init__()
         self.heads, self.act, self.eps, self.causal = heads, act, eps, causal
+        self.comm = LOCAL
         self.ln_1 = LayerNorm(width, device)
         self.attn = Attention(width, device)
         self.ln_2 = LayerNorm(width, device)
         self.mlp = Mlp(width, mlp_dim, device)
 
     def forward(self, x: torch.Tensor, attn_impl: str = "auto") -> torch.Tensor:
-        y = self.ln_1(x, self.eps)
+        c = self.comm
+        y = c.copy(self.ln_1(x, self.eps))
         a = self.attn
         q = _dense(y, a.wq, a.bq)
         k = _dense(y, a.wk, a.bk)
         v = _dense(y, a.wv, a.bv)
-        o = attn_ops.sdpa_packed(q, k, v, self.heads, causal=self.causal, impl=attn_impl)
-        x = _dense(o, a.wo, a.bo, residual=x)
-        y = self.ln_2(x, self.eps)
+        heads = self.heads * q.shape[-1] // x.shape[-1]  # a tp slice's q holds heads/tp whole heads
+        o = attn_ops.sdpa_packed(q, k, v, heads, causal=self.causal, impl=attn_impl)
+        x = _dense(o, a.wo, a.bo, residual=x, reduce=c.reduce)
+        y = c.copy(self.ln_2(x, self.eps))
         m = self.mlp
         y = _dense(y, m.w_in, m.b_in, act=self.act)
-        return _dense(y, m.w_out, m.b_out, residual=x)
+        return _dense(y, m.w_out, m.b_out, residual=x, reduce=c.reduce)
 
 
 def _mlp_dim(width: int, mlp_ratio: float) -> int:
@@ -241,6 +274,7 @@ class TextTransformer(nn.Module):
     def __init__(self, cfg: CLIPConfig, device=None):
         super().__init__()
         self.cfg = cfg
+        self.comm = LOCAL  # its `embed` looks up the token rows
         tw = cfg.text_width
         self.token_emb = _param(cfg.vocab_size, tw, device=device)
         self.pos_emb = _param(cfg.context_length, tw, device=device)
@@ -255,7 +289,7 @@ class TextTransformer(nn.Module):
         """tokens: (B, context_length) integer ids → f32 (B, embed_dim)
         features pooled at the EOT position argmax(tokens) (CLIP), or at the
         last position (SigLIP)."""
-        x = self.token_emb[tokens].to(compute_dtype)
+        x = self.comm.embed(self.token_emb, tokens).to(compute_dtype)
         x = x + self.pos_emb[: x.shape[1]].to(compute_dtype)
         for blk in self.blocks:
             x = blk(x, attn_impl)

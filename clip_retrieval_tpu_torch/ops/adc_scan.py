@@ -9,7 +9,7 @@ On CUDA tensors `adc_scan` launches the hand-written Hopper kernel in
 `csrc/adc_scan.cu` (built with nvcc at first use) or raises; on CPU tensors
 it runs `adc_scan_reference`, the same sums in the same order in plain
 PyTorch.  The two are bit-identical.  Which one runs depends only on where
-the tensors live.
+the tensors live (`cuda_build.route`).
 
 What the JAX package needed and the port does not: the (256·M, B) bf16
 transposed LUT and its one-hot MXU product (the LUT here is the natural
@@ -20,14 +20,12 @@ transposed LUT and its one-hot MXU product (the LUT here is the natural
 
 from __future__ import annotations
 
-import ctypes
-import functools
-import threading
-
 import torch
 
-_LAUNCH_LOCK = threading.Lock()
-_LIB_NAME = "adc_scan"
+from . import cuda_build
+
+LIBRARY = "adc_scan"
+_SCAN = cuda_build.Kernel(LIBRARY, "crt_adc_scan")
 CHUNK = 128  # code rows per worklist chunk; inverted lists start at multiples of it
 
 
@@ -51,25 +49,6 @@ def adc_scan_reference(
         acc = acc + lut[own, mm, chunk_codes[:, :, mm].long()]
     out = acc + coarse.float()[:, None]
     return torch.where(r[None, :] < nvalid[:, None], out, float("-inf"))
-
-
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    from .cuda_build import load_library
-
-    lib = load_library(_LIB_NAME, ["adc_scan.cu"])
-    # every pointer and the stream as c_void_p: a default int would cut them to 32 bits
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.crt_adc_scan.argtypes = [vp, ctypes.c_longlong, vp, ci, ci, vp, vp, vp, vp, vp, ci, ci, vp]
-    lib.crt_adc_scan.restype = ci
-    lib.crt_cuda_error_string.argtypes = [ci]
-    lib.crt_cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def build() -> None:
-    """Compile (or find) and load the kernel's library now."""
-    _lib()
 
 
 def _check(codes, lut, blocks, nvalid, owner, coarse) -> None:
@@ -119,30 +98,16 @@ def adc_scan(
     NaN on CUDA (the kernel reads only inside the arrays) and raises on the
     CPU.  CPU tensors: the plain reference."""
     tensors = (codes, lut, blocks, nvalid, owner, coarse)
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"adc_scan inputs on different devices: {sorted(map(str, devices))}")
-    if codes.device.type == "cpu":
+    if cuda_build.route("adc_scan", *tensors) == "cpu":
         return adc_scan_reference(*tensors)
-    if codes.device.type != "cuda":
-        raise ValueError(f"adc_scan runs on cuda or cpu tensors, got {codes.device}")
     _check(*tensors)
     nc, m = blocks.shape[0], codes.shape[1]
     out = torch.empty((nc, CHUNK), dtype=torch.float32, device=codes.device)
     if nc == 0:
         return out
-    lib = _lib()
-    with torch.cuda.device(codes.device):
-        stream = torch.cuda.current_stream(codes.device).cuda_stream
-        rc = lib.crt_adc_scan(
-            codes.data_ptr(), codes.shape[0] // CHUNK, lut.data_ptr(), lut.shape[0], m, blocks.data_ptr(),
-            nvalid.data_ptr(), owner.data_ptr(), coarse.data_ptr(), out.data_ptr(), nc, code_width(codes), stream,
-        )
-    if rc != 0:
-        msg = lib.crt_cuda_error_string(rc).decode()
-        raise RuntimeError(f"adc_scan kernel launch failed ({rc}: {msg}) at NC={nc} M={m} B={lut.shape[0]}")
-    with _LAUNCH_LOCK:  # wrappers run on several server threads at once
-        adc_scan.launches += 1
+    _SCAN.launch(adc_scan, codes.device, lambda: f"NC={nc} M={m} B={lut.shape[0]}",
+                 codes.data_ptr(), codes.shape[0] // CHUNK, lut.data_ptr(), lut.shape[0], m, blocks.data_ptr(),
+                 nvalid.data_ptr(), owner.data_ptr(), coarse.data_ptr(), out.data_ptr(), nc, code_width(codes))
     return out
 
 

@@ -10,23 +10,25 @@ reads and writes every element once and keeps the intermediates in
 registers, rounding where the eager chain rounds (the source's note).
 
 On CUDA tensors a wrapper launches its kernel or raises; on CPU tensors it
-runs its plain version, which is the eager chain itself.  Each wrapper
-counts its launches; `record_eager` counts the dense and LayerNorm calls of
-`models/clip.py` that took the eager chain because an input requires grad
-(the kernels have no backward).
+runs its plain version, which is the eager chain itself (`cuda_build.route`).
+Each wrapper counts its launches (`cuda_build.Kernel.launch`); `record_eager`
+counts the dense and LayerNorm calls of `models/clip.py` that took the eager
+chain because an input requires grad (the kernels have no backward).
 """
 
 from __future__ import annotations
 
-import ctypes
-import functools
 import threading
 
 import torch
 import torch.nn.functional as F
 
+from . import cuda_build
+
 _LOCK = threading.Lock()
-_LIB_NAME = "block_fused"
+LIBRARY = "block_fused"
+_EPILOGUE = cuda_build.Kernel(LIBRARY, "crt_dense_epilogue")
+_LAYERNORM = cuda_build.Kernel(LIBRARY, "crt_layernorm")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 ACT_CODE = {None: 0, "quick_gelu": 1, "gelu": 2, "gelu_tanh": 3}
 MAX_LN_WIDTH = 2048  # the row in registers: 8 f32 a lane per 256 of width, 64 at most
@@ -62,27 +64,6 @@ def layernorm_reference(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor
     return y.to(x.dtype)
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    from .cuda_build import load_library
-
-    lib = load_library(_LIB_NAME, ["block_fused.cu"])
-    # every pointer and the stream as c_void_p: a default int would cut them to 32 bits
-    vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.crt_dense_epilogue.argtypes = [vp, vp, vp, vp, cll, ci, ci, ci, vp]
-    lib.crt_dense_epilogue.restype = ci
-    lib.crt_layernorm.argtypes = [vp, vp, vp, vp, cll, ci, ctypes.c_float, ci, vp]
-    lib.crt_layernorm.restype = ci
-    lib.crt_cuda_error_string.argtypes = [ci]
-    lib.crt_cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def build() -> None:
-    """Compile (or find) and load the kernels' library now."""
-    _lib()
-
-
 def record_eager() -> None:
     """Count one dense or LayerNorm call that took the eager chain."""
     with _LOCK:
@@ -95,28 +76,6 @@ record_eager.calls = 0
 def counts() -> tuple[int, int]:
     """(kernel launches of both wrappers, eager-chain calls) so far."""
     return dense_epilogue.launches + layernorm.launches, record_eager.calls
-
-
-def _refuse_autograd(name: str, *tensors: torch.Tensor | None) -> None:
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
-        raise RuntimeError(f"{name} has no backward: an input requires grad; take the eager chain to train")
-
-
-def _check_device(name: str, *tensors: torch.Tensor | None) -> str:
-    devices = {t.device for t in tensors if t is not None}
-    if len(devices) != 1:
-        raise ValueError(f"{name}: inputs on different devices: {sorted(map(str, devices))}")
-    kind = devices.pop().type
-    if kind not in ("cuda", "cpu"):
-        raise ValueError(f"{name} runs on cuda or cpu tensors, got {kind}")
-    return kind
-
-
-def _launch(lib: ctypes.CDLL, fn, name: str, device: torch.device, *args) -> None:
-    with torch.cuda.device(device):
-        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed ({rc}: {lib.crt_cuda_error_string(rc).decode()})")
 
 
 def dense_epilogue(
@@ -135,10 +94,10 @@ def dense_epilogue(
     contiguous, dtype bf16 or f32; anything else raises.  With nothing to
     add and dtype f32 the accumulator is the result, and nothing launches.
     CPU tensors: the plain version."""
-    _refuse_autograd("dense_epilogue", acc, bias, residual)
+    kind = cuda_build.route("dense_epilogue", acc, bias, residual)
     if act not in ACT_CODE:
         raise ValueError(f"unknown act {act}")
-    if _check_device("dense_epilogue", acc, bias, residual) == "cpu":
+    if kind == "cpu":
         return dense_epilogue_reference(acc, bias, act, residual, dtype)
     if acc.dtype != torch.float32 or not acc.is_contiguous() or acc.dim() == 0:
         raise ValueError(f"acc must be a contiguous float32 tensor of rank ≥ 1, got {acc.dtype} {tuple(acc.shape)}")
@@ -157,12 +116,9 @@ def dense_epilogue(
     out = torch.empty(acc.shape, dtype=dtype, device=acc.device)
     if out.numel() == 0:
         return out
-    lib = _lib()
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    _launch(lib, lib.crt_dense_epilogue, "dense_epilogue", acc.device, acc.data_ptr(), ptr(bias), ptr(residual),
-            out.data_ptr(), acc.numel() // n, n, ACT_CODE[act], _DTYPE_CODE[dtype])
-    with _LOCK:  # wrappers run on several server threads at once
-        dense_epilogue.launches += 1
+    _EPILOGUE.launch(dense_epilogue, acc.device, lambda: f"acc {tuple(acc.shape)}", acc.data_ptr(), ptr(bias),
+                     ptr(residual), out.data_ptr(), acc.numel() // n, n, ACT_CODE[act], _DTYPE_CODE[dtype])
     return out
 
 
@@ -175,8 +131,7 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: flo
 
     CUDA tensors: x bf16 or f32 and contiguous, W ≤ 2048, scale and bias f32
     contiguous (W,); anything else raises.  CPU tensors: the plain version."""
-    _refuse_autograd("layernorm", x, scale, bias)
-    if _check_device("layernorm", x, scale, bias) == "cpu":
+    if cuda_build.route("layernorm", x, scale, bias) == "cpu":
         return layernorm_reference(x, scale, bias, eps)
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"layernorm takes bfloat16 or float32, not {x.dtype}")
@@ -191,11 +146,8 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: flo
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
-    lib = _lib()
-    _launch(lib, lib.crt_layernorm, "layernorm", x.device, x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), x.numel() // w, w, float(eps), _DTYPE_CODE[x.dtype])
-    with _LOCK:
-        layernorm.launches += 1
+    _LAYERNORM.launch(layernorm, x.device, lambda: f"x {tuple(x.shape)}", x.data_ptr(), scale.data_ptr(),
+                      bias.data_ptr(), out.data_ptr(), x.numel() // w, w, float(eps), _DTYPE_CODE[x.dtype])
     return out
 
 

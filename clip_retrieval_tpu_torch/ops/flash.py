@@ -7,19 +7,19 @@ Counterparts of `clip_retrieval_tpu/ops/flash.py::flash_attention_packed`
 `csrc/flash_packed.cu` (built with nvcc at first use): on CUDA tensors a
 wrapper launches it or raises; on CPU tensors it runs its plain version, the
 same math in plain PyTorch.  Which one runs depends only on where the tensors
-live.  Each wrapper counts its own launches.
+live (`cuda_build.route`).  Each wrapper counts its own launches
+(`cuda_build.Kernel.launch`).
 """
 
 from __future__ import annotations
 
-import ctypes
-import functools
-import threading
-
 import torch
 
-_LAUNCH_LOCK = threading.Lock()
-_LIB_NAME = "flash_packed"
+from . import cuda_build
+
+LIBRARY = "flash_packed"
+_PACKED = cuda_build.Kernel(LIBRARY, "crt_flash_packed")
+_BHSD = cuda_build.Kernel(LIBRARY, "crt_flash_bhsd")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
 
@@ -47,35 +47,6 @@ def flash_attention_packed_reference(
     return out.transpose(1, 2).reshape(b, s, w).to(q.dtype)
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    from .cuda_build import load_library
-
-    lib = load_library(_LIB_NAME, ["flash_packed.cu"])
-    # every pointer and the stream as c_void_p: a default int would cut them to 32 bits
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.crt_flash_packed.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp]
-    lib.crt_flash_packed.restype = ci
-    lib.crt_flash_bhsd.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, vp]
-    lib.crt_flash_bhsd.restype = ci
-    lib.crt_cuda_error_string.argtypes = [ci]
-    lib.crt_cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def build() -> None:
-    """Compile (or find) and load the kernel's library now."""
-    _lib()
-
-
-def _refuse_autograd(name: str, *tensors: torch.Tensor) -> None:
-    """The kernel has no backward, so a differentiable call would return a
-    result with no gradient; refuse it (the plain route is `sdpa_packed` /
-    `sdpa` with impl='xla')."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(f"{name} has no backward: an input requires grad; use impl='xla' to train")
-
-
 def flash_attention_packed(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, *, causal: bool = False
 ) -> torch.Tensor:
@@ -86,14 +57,8 @@ def flash_attention_packed(
     CUDA tensors: bf16 or f32, contiguous, equal shapes, dh ≤ 128; anything
     else raises.  CPU tensors: the plain reference.  Either raises when an
     input requires grad under grad mode: the kernel has no backward."""
-    _refuse_autograd("flash_attention_packed", q, k, v)
-    devices = {q.device, k.device, v.device}
-    if len(devices) != 1:
-        raise ValueError(f"q, k, v on different devices: {sorted(map(str, devices))}")
-    if q.device.type == "cpu":
+    if cuda_build.route("flash_attention_packed", q, k, v) == "cpu":
         return flash_attention_packed_reference(q, k, v, heads, causal=causal)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_packed runs on cuda or cpu tensors, got {q.device}")
     if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"q, k, v must be equal (B, S, W) shapes, got {q.shape}, {k.shape}, {v.shape}")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODE:
@@ -113,17 +78,8 @@ def flash_attention_packed(
         return out
     ptrs = [t.data_ptr() for t in (q, k, v, out)]
     vec = int(q.dtype == torch.bfloat16 and dh % 8 == 0 and all(p % 16 == 0 for p in ptrs))
-    lib = _lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.crt_flash_packed(
-            *ptrs, b, s, heads, dh, int(causal), _DTYPE_CODE[q.dtype], vec, stream
-        )
-    if rc != 0:
-        msg = lib.crt_cuda_error_string(rc).decode()
-        raise RuntimeError(f"flash_packed kernel launch failed ({rc}: {msg}) at B={b} S={s} heads={heads} dh={dh}")
-    with _LAUNCH_LOCK:  # wrappers run on several server threads at once
-        flash_attention_packed.launches += 1
+    _PACKED.launch(flash_attention_packed, q.device, lambda: f"B={b} S={s} heads={heads} dh={dh}",
+                   *ptrs, b, s, heads, dh, int(causal), _DTYPE_CODE[q.dtype], vec)
     return out
 
 
@@ -149,14 +105,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     CUDA tensors: bf16 or f32, contiguous, dh ≤ 128; anything else raises.
     CPU tensors: the plain reference.  Either raises when an input requires
     grad under grad mode: the kernel has no backward."""
-    _refuse_autograd("flash_attention", q, k, v)
-    devices = {q.device, k.device, v.device}
-    if len(devices) != 1:
-        raise ValueError(f"q, k, v on different devices: {sorted(map(str, devices))}")
-    if q.device.type == "cpu":
+    if cuda_build.route("flash_attention", q, k, v) == "cpu":
         return flash_attention_reference(q, k, v, causal=causal)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu tensors, got {q.device}")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]:
         raise ValueError(f"q must be (B, H, Sq, dh) and k, v (B, H, Sk, dh), got {q.shape}, {k.shape}, {v.shape}")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODE:
@@ -176,15 +126,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
         return out
     ptrs = [t.data_ptr() for t in (q, k, v, out)]
     vec = int(q.dtype == torch.bfloat16 and dh % 8 == 0 and all(p % 16 == 0 for p in ptrs))
-    lib = _lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.crt_flash_bhsd(*ptrs, b, h, sq, sk, dh, int(causal), _DTYPE_CODE[q.dtype], vec, stream)
-    if rc != 0:
-        msg = lib.crt_cuda_error_string(rc).decode()
-        raise RuntimeError(f"flash_attention kernel launch failed ({rc}: {msg}) at B={b} H={h} Sq={sq} Sk={sk} dh={dh}")
-    with _LAUNCH_LOCK:
-        flash_attention.launches += 1
+    _BHSD.launch(flash_attention, q.device, lambda: f"B={b} H={h} Sq={sq} Sk={sk} dh={dh}",
+                 *ptrs, b, h, sq, sk, dh, int(causal), _DTYPE_CODE[q.dtype], vec)
     return out
 
 

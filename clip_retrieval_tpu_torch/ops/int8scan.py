@@ -10,23 +10,22 @@ On CUDA tensors `int8_gather_scan` launches the hand-written Hopper kernel
 in `csrc/int8_scan.cu` (built with nvcc at first use) or raises; on CPU
 tensors it runs `int8_gather_scan_reference`, the same result in plain
 PyTorch (index_select, exact int8 product, the same epilogue).  The two are
-bit-identical.  Which one runs depends only on where the tensors live.
+bit-identical.  Which one runs depends only on where the tensors live
+(`cuda_build.route`).
 There is no segmenting of long selections: the kernel's grid has no
 per-call limit that needs it.
 """
 
 from __future__ import annotations
 
-import ctypes
-import functools
-import threading
-
 import torch
+
+from . import cuda_build
 
 from .int8mm import int8_matmul_nt
 
-_LAUNCH_LOCK = threading.Lock()
-_LIB_NAME = "int8_scan"
+LIBRARY = "int8_scan"
+_SCAN = cuda_build.Kernel(LIBRARY, "crt_int8_gather_scan")
 MAX_D = 2048  # the kernel stages all of d of its query rows in shared memory
 
 
@@ -47,25 +46,6 @@ def int8_gather_scan_reference(
     scores = acc * q_scale.float()[:, None] * scales.index_select(0, sel).reshape(1, u * lc)
     valid = pos.index_select(0, sel).reshape(1, u * lc) >= 0
     return torch.where(valid, scores, float("-inf"))
-
-
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    from .cuda_build import load_library
-
-    lib = load_library(_LIB_NAME, ["int8_scan.cu"])
-    # every pointer and the stream as c_void_p: a default int would cut them to 32 bits
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.crt_int8_gather_scan.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
-    lib.crt_int8_gather_scan.restype = ci
-    lib.crt_cuda_error_string.argtypes = [ci]
-    lib.crt_cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def build() -> None:
-    """Compile (or find) and load the kernel's library now."""
-    _lib()
 
 
 def _check(qq, q_scale, rows, scales, pos, chunk_sel) -> None:
@@ -108,13 +88,8 @@ def int8_gather_scan(
     chunk on CUDA (the kernel reads only inside the image) and raises on the
     CPU.  CPU tensors: the plain reference."""
     tensors = (qq, q_scale, rows, scales, pos, chunk_sel)
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"int8_gather_scan inputs on different devices: {sorted(map(str, devices))}")
-    if qq.device.type == "cpu":
+    if cuda_build.route("int8_gather_scan", *tensors) == "cpu":
         return int8_gather_scan_reference(*tensors)
-    if qq.device.type != "cuda":
-        raise ValueError(f"int8_gather_scan runs on cuda or cpu tensors, got {qq.device}")
     _check(*tensors)
     b, d = qq.shape
     nchunks, lc, _ = rows.shape
@@ -123,17 +98,8 @@ def int8_gather_scan(
     if out.numel() == 0:
         return out
     vec = int(d % 16 == 0 and qq.data_ptr() % 16 == 0 and rows.data_ptr() % 16 == 0)
-    lib = _lib()
-    with torch.cuda.device(qq.device):
-        stream = torch.cuda.current_stream(qq.device).cuda_stream
-        rc = lib.crt_int8_gather_scan(
-            *(t.data_ptr() for t in tensors), out.data_ptr(), b, d, lc, nchunks, u, vec, stream
-        )
-    if rc != 0:
-        msg = lib.crt_cuda_error_string(rc).decode()
-        raise RuntimeError(f"int8_scan kernel launch failed ({rc}: {msg}) at B={b} d={d} Lc={lc} U={u}")
-    with _LAUNCH_LOCK:  # wrappers run on several server threads at once
-        int8_gather_scan.launches += 1
+    _SCAN.launch(int8_gather_scan, qq.device, lambda: f"B={b} d={d} Lc={lc} U={u}",
+                 *(t.data_ptr() for t in tensors), out.data_ptr(), b, d, lc, nchunks, u, vec)
     return out
 
 

@@ -25,6 +25,11 @@ dp groups its columns.
 - The optimizer is `torch.optim.AdamW`, which computes what `optax.adamw`
   computes (eps added after the square root, decay on every parameter).
 
+The towers' forward is `models/clip.py`'s own (`encode_image`, `encode_text`,
+SigLIP's included): `init_fn` attaches this rank's `_Comm` to every `Block`
+and to the text tower, whose hooks place the collectives above, and a block
+runs the heads its q slice holds.
+
 Attention takes the plain route (`attn_impl="xla"`), as the JAX step does:
 kernel K1 has no backward (and refuses inputs that require grad).  The
 backend is nccl on CUDA and gloo on the CPU; the caller opens the default
@@ -169,53 +174,6 @@ class _Comm:
         return self.reduce(rows)
 
 
-def _block(x: torch.Tensor, blk: tclip.Block, heads: int, comm: _Comm) -> torch.Tensor:
-    """`Block.forward` on this rank's slices: `heads` local heads, row-parallel
-    biases added after the reduce."""
-    y = comm.copy(blk.ln_1(x, blk.eps))
-    a = blk.attn
-    q = tclip._dense(y, a.wq, a.bq)
-    k = tclip._dense(y, a.wk, a.bk)
-    v = tclip._dense(y, a.wv, a.bv)
-    o = tclip.attn_ops.sdpa_packed(q, k, v, heads, causal=blk.causal, impl="xla")
-    x = x + (comm.reduce(tclip.matmul_f32(o, a.wo)) + a.bo.float()).to(x.dtype)
-    m = blk.mlp
-    y = comm.copy(blk.ln_2(x, blk.eps))
-    y = tclip._act(tclip._dense(y, m.w_in, m.b_in), blk.act)
-    return x + (comm.reduce(tclip.matmul_f32(y, m.w_out)) + m.b_out.float()).to(x.dtype)
-
-
-def _encode_image(model: tclip.CLIP, images: torch.Tensor, compute_dtype, comm: _Comm) -> torch.Tensor:
-    """`encode_image` on this rank's slices (the ResNet tower is replicated)."""
-    x = tclip.normalize_images(images, compute_dtype) if images.dtype == torch.uint8 else images.to(compute_dtype)
-    cfg, v = model.cfg, model.visual
-    if cfg.vision_kind == "resnet":
-        return tclip.l2_normalize(v(x))
-    p_sz, g, w = cfg.patch_size, cfg.grid_size, cfg.vision_width
-    b = x.shape[0]
-    x = x.reshape(b, g, p_sz, g, p_sz, 3).permute(0, 1, 3, 2, 4, 5).reshape(b, g * g, p_sz * p_sz * 3)
-    x = tclip.matmul_f32(x, v.patch_embed.kernel.reshape(-1, w)).to(x.dtype)
-    x = torch.cat([v.class_emb.to(x.dtype).expand(b, 1, w), x], dim=1) + v.pos_emb.to(x.dtype)
-    x = v.ln_pre(x, cfg.layernorm_eps)
-    for blk in v.blocks:
-        x = _block(x, blk, cfg.vision_heads // comm.tp, comm)
-    x = v.ln_post(x[:, 0], cfg.layernorm_eps)
-    return tclip.l2_normalize(tclip.matmul_f32(x, v.proj))
-
-
-def _encode_text(model: tclip.CLIP, tokens: torch.Tensor, compute_dtype, comm: _Comm) -> torch.Tensor:
-    """`encode_text` on this rank's slices."""
-    cfg, t = model.cfg, model.text
-    tokens = tokens.long()
-    x = comm.embed(t.token_emb, tokens).to(compute_dtype)
-    x = x + t.pos_emb[: x.shape[1]].to(compute_dtype)
-    for blk in t.blocks:
-        x = _block(x, blk, cfg.text_heads // comm.tp, comm)
-    x = t.ln_final(x, cfg.layernorm_eps)
-    x = x[torch.arange(x.shape[0], device=x.device), torch.argmax(tokens, dim=-1)]
-    return tclip.l2_normalize(tclip.matmul_f32(x, t.proj))
-
-
 def clip_contrastive_loss(img_feats: torch.Tensor, txt_feats: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """Symmetric InfoNCE over the (global) batch, logits in f32."""
     logits = scale * torch.matmul(img_feats.float(), txt_feats.float().T)
@@ -272,15 +230,20 @@ def make_train_step(
 
     def init_fn(seed: int = 0, jax_state: Mapping[str, Any] | None = None):
         if jax_state is not None:
-            return from_jax_train_state(jax_state, cfg, learning_rate=learning_rate, weight_decay=weight_decay,
-                                        tp=tp, tp_rank=comm.tp_rank, device=device)
-        model = shard_model(tclip.init_clip(cfg, seed, device="cpu"), tp, comm.tp_rank).to(device)
-        return model, torch.optim.AdamW(model.parameters(), lr=learning_rate, weight_decay=weight_decay)
+            model, opt = from_jax_train_state(jax_state, cfg, learning_rate=learning_rate,
+                                              weight_decay=weight_decay, tp=tp, tp_rank=comm.tp_rank, device=device)
+        else:
+            model = shard_model(tclip.init_clip(cfg, seed, device="cpu"), tp, comm.tp_rank).to(device)
+            opt = torch.optim.AdamW(model.parameters(), lr=learning_rate, weight_decay=weight_decay)
+        for m in model.modules():
+            if isinstance(m, (tclip.Block, tclip.TextTransformer)):
+                m.comm = comm
+        return model, opt
 
     def train_step(params: tclip.CLIP, opt_state: torch.optim.AdamW, images: torch.Tensor, tokens: torch.Tensor):
         opt_state.zero_grad(set_to_none=True)
-        img = comm.gather(_encode_image(params, images.to(device), compute_dtype, comm))
-        txt = comm.gather(_encode_text(params, tokens.to(device), compute_dtype, comm))
+        img = comm.gather(tclip.encode_image(params, images.to(device), compute_dtype=compute_dtype, attn_impl="xla"))
+        txt = comm.gather(tclip.encode_text(params, tokens.to(device), compute_dtype=compute_dtype, attn_impl="xla"))
         loss = clip_contrastive_loss(img, txt, params.logit_scale.exp())
         loss.backward()
         if comm.dp_group is not None:

@@ -53,7 +53,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..ops.cuda_build import CHECKOUT, NVCC_FLAGS, nvcc_path
+from ..ops.cuda_build import CHECKOUT, NVCC_FLAGS, declare, nvcc_path
 
 # the card's published peaks (H100 SXM data sheet): HBM bytes/s, SMs; shared-memory lookups per clock per SM
 HBM_BPS, SMS, LOOKUPS_PER_CLK = 3.35e12, 132, 32
@@ -198,11 +198,7 @@ def build(root: Path, tag: str) -> tuple[ctypes.CDLL, dict]:
                           text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr[-4000:]}")
-    lib = ctypes.CDLL(str(out))
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.crt_adc_scan.argtypes = [vp, ctypes.c_longlong, vp, ci, ci, vp, vp, vp, vp, vp, ci, ci, vp]
-    lib.crt_adc_scan.restype = ci
-    return lib, ptxas_report(proc.stdout + proc.stderr)
+    return declare(ctypes.CDLL(str(out)), "adc_scan"), ptxas_report(proc.stdout + proc.stderr)
 
 
 def variant_root(name: str, edits: list[tuple[str, str]]) -> Path:

@@ -32,7 +32,7 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
-from ..ops.cuda_build import CHECKOUT, NVCC_FLAGS, nvcc_path
+from ..ops.cuda_build import CHECKOUT, NVCC_FLAGS, declare, nvcc_path
 
 # (entry, B, S, heads, dh, causal)
 SHAPES = [("packed", 256, 257, 16, 64, False), ("packed", 256, 77, 12, 64, True),
@@ -70,13 +70,7 @@ def build(root: Path, tag: str) -> tuple[ctypes.CDLL, dict]:
                           text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr[-4000:]}")
-    lib = ctypes.CDLL(str(out))
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.crt_flash_packed.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp]
-    lib.crt_flash_packed.restype = ci
-    lib.crt_flash_bhsd.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, vp]
-    lib.crt_flash_bhsd.restype = ci
-    return lib, ptxas_report(proc.stdout + proc.stderr)
+    return declare(ctypes.CDLL(str(out)), "flash_packed"), ptxas_report(proc.stdout + proc.stderr)
 
 
 def launcher(lib: ctypes.CDLL, entry: str, q, k, v, o, heads: int, causal: bool):

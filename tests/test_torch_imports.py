@@ -9,6 +9,7 @@ the port may import them.  Entry points, index classes and loaders default
 to device="cuda" and raise when no GPU is visible.
 """
 
+import ast
 import os
 import re
 import subprocess
@@ -78,6 +79,52 @@ def test_sources_have_no_import_of_the_jax_package():
     files = [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]
     offenders = [str(p) for p in files if pattern.search(p.read_text())]
     assert not offenders
+
+
+# the modules that wrap a kernel library of `ops/cuda_build.py`'s table
+KERNEL_WRAPPERS = ("flash", "block_fused", "int8scan", "adc_scan")
+
+
+def _imported_names(tree: ast.AST) -> set[str]:
+    """Every module and name an import statement anywhere in `tree` names,
+    each dotted path also cut into its parts."""
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            paths = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            paths = [node.module or ""] + [a.name for a in node.names]
+        else:
+            continue
+        for path in paths:
+            names.update(path.split("."))
+    return names
+
+
+def test_cuda_build_imports_no_wrapper_and_holds_every_library_the_wrappers_launch():
+    """Static: `ops/cuda_build.py` imports none of the four kernel wrappers,
+    and each wrapper reaches its library only through `cuda_build.Kernel(
+    LIBRARY, entry)` (no ctypes, no loader of its own), where every (LIBRARY,
+    entry) is a row of `cuda_build.LIBRARIES` and every row has a wrapper."""
+    from clip_retrieval_tpu_torch.ops import cuda_build
+
+    ops = PKG / "ops"
+    assert not _imported_names(ast.parse((ops / "cuda_build.py").read_text())) & set(KERNEL_WRAPPERS)
+    launched = set()
+    for mod in KERNEL_WRAPPERS:
+        tree = ast.parse((ops / f"{mod}.py").read_text())
+        assert "ctypes" not in _imported_names(tree), mod
+        consts = {t.id: n.value.value for n in tree.body if isinstance(n, ast.Assign)
+                  for t in n.targets if isinstance(t, ast.Name) and isinstance(n.value, ast.Constant)}
+        calls = [n for n in ast.walk(tree) if isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute)]
+        assert not [c for c in calls if c.func.attr in ("load_library", "CDLL")], mod
+        kernels = [c for c in calls if c.func.attr == "Kernel"]
+        assert kernels, mod
+        for call in kernels:
+            lib, entry = (consts[a.id] if isinstance(a, ast.Name) else a.value for a in call.args)
+            assert entry in cuda_build.LIBRARIES[lib][1], (mod, lib, entry)
+            launched.add((lib, entry))
+    assert launched == {(lib, e) for lib, (_, entries) in cuda_build.LIBRARIES.items() for e in entries}
 
 
 # the modules of slice 4 (shard → combine → reorder → serve, and the entry points on ported code)

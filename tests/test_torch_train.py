@@ -17,6 +17,13 @@ package's, on the CPU at TEST_TINY.
   optax adamw's mu, nu and count after one JAX step) track three steps of
   JAX's `make_train_step` on a 1×1 mesh (run in a fresh interpreter, as
   tests/test_parallel does) to loss rtol 1e-3.
+- The step runs the towers' own forward (`models/clip.py`): at 1×1 its loss
+  and gradients equal `clip_contrastive_loss ∘ clip_forward(attn_impl="xla")`
+  of the unsharded model bit for bit, at TEST_TINY and at test-tiny-siglip
+  (no class token, a pooling head, last-position text pooling).  SigLIP at
+  (dp, tp) ∈ {(1,1), (1,2)} holds that expression's loss to rtol 2e-4 and
+  every gradient slice to cosine ≥ 0.9999, as above; the JAX package has no
+  SigLIP.
 - `torch.optim.AdamW` equals `optax.adamw` on one leaf over five steps.
 - Kernel K1 refuses inputs that require grad; the plain route trains.
 """
@@ -37,7 +44,8 @@ import torch
 from clip_retrieval_tpu.models import clip as jclip
 from clip_retrieval_tpu.models.configs import TEST_TINY as JTINY
 from clip_retrieval_tpu.parallel.train import clip_contrastive_loss as jax_loss
-from clip_retrieval_tpu_torch.models.configs import TEST_TINY
+from clip_retrieval_tpu_torch.models import clip as tclip
+from clip_retrieval_tpu_torch.models.configs import TEST_TINY, TEST_TINY_SIGLIP
 from clip_retrieval_tpu_torch.models.loaders import from_jax_params
 from clip_retrieval_tpu_torch.ops import attention, flash
 from clip_retrieval_tpu_torch.parallel import train as ptrain
@@ -88,6 +96,28 @@ dist.destroy_process_group()
 """ % LR
 
 
+SEEDED_RANK_CODE = """
+import datetime, sys
+import numpy as np, torch
+import torch.distributed as dist
+from clip_retrieval_tpu_torch.models.configs import get_config
+from clip_retrieval_tpu_torch.parallel.train import make_train_step
+
+rank, dp, tp, root, config = int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]
+torch.set_num_threads(1)
+dist.init_process_group("gloo", init_method="file://" + root + "/store", rank=rank, world_size=dp * tp,
+                        timeout=datetime.timedelta(seconds=120))
+data = np.load(root + "/inputs.npz")
+init_fn, step = make_train_step(get_config(config), learning_rate=%r, dp=dp, tp=tp, device="cpu")
+params, opt = init_fn(seed=0)
+b = data["images"].shape[0] // dp
+rows = slice(rank // tp * b, (rank // tp + 1) * b)
+params, opt, loss = step(params, opt, torch.from_numpy(data["images"][rows]), torch.from_numpy(data["tokens"][rows]))
+np.savez(root + f"/rank{rank}.npz", loss=loss.numpy(), **{n: p.grad.numpy() for n, p in params.named_parameters()})
+dist.destroy_process_group()
+""" % LR
+
+
 def _flatten(tree, prefix: str) -> dict:
     leaves = jax.tree_util.tree_flatten_with_path(tree)[0]
     return {prefix + "/".join(str(getattr(k, "key", k)) for k in path): np.asarray(v) for path, v in leaves}
@@ -127,9 +157,9 @@ def jax_reference(batch):
     return _flatten(params, "params/"), float(loss), jax.tree.map(np.asarray, grads)
 
 
-def _run_ranks(root: Path, dp: int, tp: int, steps: int) -> list:
+def _spawn_ranks(code: str, root: Path, dp: int, tp: int, arg: str) -> None:
     env = {**{k: v for k, v in os.environ.items() if not k.startswith(("JAX_", "XLA_"))}, "OMP_NUM_THREADS": "1"}
-    procs = [subprocess.Popen([sys.executable, "-c", RANK_CODE, str(r), str(dp), str(tp), str(root), str(steps)],
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r), str(dp), str(tp), str(root), arg],
                               cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for r in range(dp * tp)]
     outs = []
@@ -143,11 +173,30 @@ def _run_ranks(root: Path, dp: int, tp: int, steps: int) -> list:
                 p.wait()
     for r, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"rank {r}:\n{out[-3000:]}"
+
+
+def _run_ranks(root: Path, dp: int, tp: int, steps: int) -> list:
+    _spawn_ranks(RANK_CODE, root, dp, tp, str(steps))
     return [json.load(open(root / f"rank{r}.json")) for r in range(dp * tp)]
 
 
 def _cos(a: np.ndarray, b: np.ndarray) -> float:
     return float(a.ravel() @ b.ravel() / (np.linalg.norm(a) * np.linalg.norm(b)))
+
+
+def _config_batch(cfg, seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
+    rng = np.random.default_rng(seed)
+    images = rng.integers(0, 255, (BATCH, cfg.image_size, cfg.image_size, 3)).astype(np.uint8)
+    tokens = rng.integers(1, cfg.vocab_size - 2, (BATCH, cfg.context_length)).astype(np.int32)
+    return images, tokens
+
+
+def _model_loss(cfg, images: np.ndarray, tokens: np.ndarray):
+    """The unsharded model (`init_clip(cfg, 0)`, trainable) and the loss of its
+    own forward on the plain attention route, before any step."""
+    model = ptrain.shard_model(tclip.init_clip(cfg, 0, device="cpu"), 1, 0)
+    feats = tclip.clip_forward(model, torch.from_numpy(images), torch.from_numpy(tokens), attn_impl="xla")
+    return model, ptrain.clip_contrastive_loss(*feats)
 
 
 @pytest.mark.parametrize("dp,tp", [(1, 1), (2, 1), (1, 2), (2, 2)])
@@ -166,6 +215,48 @@ def test_loss_and_gradients_match_jax(tmp_path, batch, jax_reference, dp, tp):
             w = full[name].detach().numpy()
             if dim is not None and tp > 1:
                 w = np.split(w, tp, axis=dim)[r % tp]
+            assert g.shape == w.shape, name
+            if np.linalg.norm(w) < 1e-6:
+                assert np.abs(g).max() <= ZERO_GRAD_ATOL, name
+            else:
+                assert _cos(g, w) >= MIN_COS, (name, _cos(g, w))
+
+
+@pytest.mark.parametrize("cfg", [TEST_TINY, TEST_TINY_SIGLIP], ids=lambda c: c.name)
+def test_step_at_one_rank_is_the_models_own_forward(cfg):
+    """At 1×1 the step's loss and gradients are those of `clip_forward` on the
+    unsharded model, bit for bit: the step runs the towers' own forward."""
+    images, tokens = _config_batch(cfg)
+    model, want = _model_loss(cfg, images, tokens)
+    want.backward()
+    init_fn, step = ptrain.make_train_step(cfg, learning_rate=LR, device="cpu")
+    params, opt = init_fn(seed=0)
+    params, opt, loss = step(params, opt, torch.from_numpy(images), torch.from_numpy(tokens))
+    assert torch.equal(loss, want.detach())
+    want_grads = dict(model.named_parameters())
+    for name, p in params.named_parameters():
+        assert torch.equal(p.grad, want_grads[name].grad), name
+
+
+@pytest.mark.parametrize("dp,tp", [(1, 1), (1, 2)])
+def test_siglip_step_holds_the_unsharded_forward(tmp_path, dp, tp):
+    """test-tiny-siglip (heads 4 and 2, vocabulary 260 and MLPs 60 split over
+    tp) through the step on gloo ranks: loss to rtol 2e-4 and every gradient
+    slice to cosine ≥ 0.9999 against the unsharded model's own forward."""
+    cfg = TEST_TINY_SIGLIP
+    images, tokens = _config_batch(cfg)
+    model, want = _model_loss(cfg, images, tokens)
+    want.backward()
+    np.savez(tmp_path / "inputs.npz", images=images, tokens=tokens)
+    _spawn_ranks(SEEDED_RANK_CODE, tmp_path, dp, tp, cfg.name)
+    full = {n: p.grad.numpy() for n, p in model.named_parameters()}
+    for r in range(dp * tp):
+        got = dict(np.load(tmp_path / f"rank{r}.npz"))
+        np.testing.assert_allclose(got.pop("loss"), want.item(), rtol=LOSS_RTOL)
+        assert sorted(got) == sorted(full)
+        for name, g in got.items():
+            dim = ptrain.tp_dim(name)
+            w = full[name] if dim is None or tp == 1 else np.split(full[name], tp, axis=dim)[r % tp]
             assert g.shape == w.shape, name
             if np.linalg.norm(w) < 1e-6:
                 assert np.abs(g).max() <= ZERO_GRAD_ATOL, name
