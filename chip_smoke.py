@@ -526,6 +526,8 @@ def phase_main_path(kernels: dict, gpu: str) -> dict:
         check(importlib.util.find_spec(mod) is not None, f"{mod} is needed to write the parquet metadata")
     write_corpus(corpus)
     zero_counts(kernels)
+    k1 = kernels["k1"]
+    k1.launches_by_route = dict.fromkeys(k1.launches_by_route, 0)
     t0 = time.perf_counter()
     clip_inference(
         input_dataset=corpus, output_folder=out, batch_size=BATCH, num_prepro_workers=8, clip_model=MODEL,
@@ -534,8 +536,9 @@ def phase_main_path(kernels: dict, gpu: str) -> dict:
     wall = time.perf_counter() - t0
     counts = read_counts(kernels)
     launches = counts["k1"]
+    by_route = dict(k1.launches_by_route)
     print(f"  [{gpu}] main path wall {wall:.2f} s on the host clock, 2 batches, including model init and "
-          f"JPEG decode; K1 launches {launches}")
+          f"JPEG decode; K1 launches {launches}, by route {by_route}")
     for sub, name in (("img_emb", "img_emb_0.npy"), ("text_emb", "text_emb_0.npy")):
         emb = np.load(f"{out}/{sub}/{name}")
         norms = np.linalg.norm(emb.astype(np.float32), axis=-1)
@@ -552,6 +555,7 @@ def phase_main_path(kernels: dict, gpu: str) -> dict:
     check(stats.get("sample_count") == SAMPLES, f"stats count {stats.get('sample_count')}")
     expected = 2 * (24 + 12)  # 2 batches x (vision + text layers)
     check(launches == expected, f"K1 launched {launches} times on the main path, expected {expected}")
+    check(by_route == {"wgmma": expected, "mma_sync": 0, "f32": 0}, f"K1's routes on the main path: {by_route}")
     check(counts["k2"] == counts["k3"] == counts["k4"] == 0, f"another kernel launched on the embedding path: {counts}")
     # a batch: 6 epilogues and 2 LayerNorms a block, the patch dense, ln_pre, ln_post and ln_final
     fused = {"epilogue": 2 * (6 * (24 + 12) + 1), "layernorm": 2 * (2 * (24 + 12) + 3)}
@@ -589,12 +593,15 @@ def phase_parity(mapper, gpu: str):
     check(cos_f32 >= 0.9999, "f32 kernel path disagrees with the f32 plain path")
 
 
-def phase_times(flash, mapper, gpu: str) -> tuple[tuple[float, float, float], tuple[float, float, float], float]:
+def phase_times(flash, mapper, gpu: str) -> tuple[tuple[float, float, float], tuple[float, float, float],
+                                                  tuple[float, float, float], float]:
     """Mapper samples/s on device-resident inputs, and K1 against its plain
-    version at the main path's two attention shapes in bf16 (`time_k1`).
-    Returns ((K1 ms, plain ms, SDPA ms) at the image tower's (256, 257,
-    16x64), the same at the text tower's (256, 77, 12x64, causal), the worst
-    max abs error of the two checks)."""
+    version at the main path's two attention shapes in bf16 and at SigLIP
+    So400m/384's image shape (256, 729, 16x72), the wgmma route's wide
+    panels (`time_k1`).  Returns ((K1 ms, plain ms, SDPA ms) at the image
+    tower's (256, 257, 16x64), the same at the text tower's (256, 77, 12x64,
+    causal) and at SigLIP's image shape, the worst max abs error of the
+    checks)."""
     import torch
 
     from clip_retrieval_tpu_torch.inference.staging import STAGED_KEY
@@ -631,7 +638,8 @@ def phase_times(flash, mapper, gpu: str) -> tuple[tuple[float, float, float], tu
     # the two attention shapes of the main path: image tower, then causal text tower
     image = time_k1(flash, gen, 257, 16, 64, False, gpu)
     text = time_k1(flash, gen, 77, 12, 64, True, gpu)
-    return image[:3], text[:3], max(image[3], text[3])
+    siglip = time_k1(flash, gen, 729, 16, 72, False, gpu)
+    return image[:3], text[:3], siglip[:3], max(image[3], text[3], siglip[3])
 
 
 def time_k1(flash, gen, s: int, heads: int, dh: int, causal: bool, gpu: str) -> tuple[float, float, float, float]:
@@ -2608,7 +2616,7 @@ def run() -> int:
         phase_parity(mapper, gpu)
 
         phase = "times"
-        (k1_ms, plain_ms, sdpa_ms), k1_text, max_abs_b256 = phase_times(flash, mapper, gpu)
+        (k1_ms, plain_ms, sdpa_ms), k1_text, k1_siglip, max_abs_b256 = phase_times(flash, mapper, gpu)
         del mapper
         torch.cuda.empty_cache()
 
@@ -2764,6 +2772,10 @@ def run() -> int:
         text_bound, _ = attention_bound_ms(BATCH, 12, 77, 77, 64, 2)
         line[0]["at_text_shape"] = {"shape": [BATCH, 77, 12, 64], "causal": True, "ms": k1_text[0],
                                     "plain_ms": k1_text[1], "library_ms": k1_text[2], "bound_ms": text_bound}
+        line[0]["at_siglip_image_shape"] = {
+            "shape": [BATCH, 729, 16, 72], "causal": False, "route": "wgmma", "ms": k1_siglip[0],
+            "plain_ms": k1_siglip[1], "library_ms": k1_siglip[2],
+            "bound_ms": attention_bound_ms(BATCH, 16, 729, 729, 72, 2)[0]}
         line[0]["at_rn_text_shapes"] = [
             {"shape": [BATCH, 77, heads, 64], "causal": True, "ms": t[0], "plain_ms": t[1], "library_ms": t[2],
              "max_abs_err": t[3], "bound_ms": attention_bound_ms(BATCH, heads, 77, 77, 64, 2)[0]}

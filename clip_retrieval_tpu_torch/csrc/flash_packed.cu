@@ -22,10 +22,20 @@
 //   products (1.86× the needed work at S=257, from the 64-row granularity)
 //   and the softmax's ~3e8 ex2 on the 16-per-clock MUFU pipe run largely one
 //   after the other, not overlapped.
-// - Two routes, both entries.  dh ≤ 64 with 16-byte-aligned rows (every CLIP
-//   tower's attention) takes the wgmma route; any other dh ≤ 128, or the
-//   non-vectorised case, takes the mma.sync route.
-// - wgmma route: a warpgroup (4 warps) owns 64 query rows; a head's ⌈S/64⌉
+// - Two routes, both entries, chosen by the caller (`ops/flash.py::
+//   kernel_route`, the `vec` argument).  Every bf16 call with dh % 8 == 0 and
+//   16-byte-aligned pointers takes the wgmma route: `flash_wgmma_kernel` at
+//   dh ≤ 64 (every CLIP tower), `wide::flash_wgmma_kernel<DP>` above (SigLIP
+//   So400m's 72, ViT-H/14's 80, ViT-g/14's 88; its note is at the kernel).
+//   Other bf16 calls take the mma.sync route.
+// - Above dh 64 the wgmma route beat the mma.sync route at every padded width
+//   (tools/ab_flash.py, H100 80GB HBM3, 700 W, one call: (256, 257, 16×80)
+//   0.4625 against 0.5145 ms, 16×88 0.7689 against 0.9087, 8×128 0.4219
+//   against 0.5373).  At SigLIP's image shape (256, 729, 16×72) the bound is
+//   0.634 ms (6.27e11 FLOP of products at 989 TFLOP/s; 1.72 GB of q, k, v and
+//   o take 0.513 ms); the wide kernel takes 2.22 ms (28.5 % of it) against
+//   the mma.sync route's 3.58 and F.scaled_dot_product_attention's 2.35.
+// - wgmma route at dh ≤ 64: a warpgroup (4 warps) owns 64 query rows; a head's ⌈S/64⌉
 //   groups are split evenly over ⌈groups/2⌉ blocks of up to 2 warpgroups
 //   (grid (splits, heads, batch)), so at S=257 each head's K/V crosses L2 3×
 //   (5× with the earlier 64-row blocks).  S = Q·Kᵀ and O += P·V are wgmma
@@ -40,11 +50,12 @@
 //   uniform, which cost more than the work it would skip (measured: idle
 //   warpgroups leaving early, an n16 product for a one-group last tile, and a
 //   second S buffer to issue S(t+1) before the softmax were all slower).
-// - mma.sync route: one warp per 16-row strip (a head's ⌈S/16⌉ strips split
-//   over ⌈strips/8⌉ blocks), m16n8k16 with Q and K fragments by `ldmatrix.x4`
-//   and V by `ldmatrix.x4.trans`; shared rows padded by 8 halves ((DP+8)·2 is
-//   an odd number of 16-byte units), so the 8 rows of each 8×8 matrix fall in
-//   8 distinct bank groups: conflict-free ldmatrix and cp.async.  A tile that
+// - mma.sync route (bf16 without 16-byte loads: dh % 8 ≠ 0 or a pointer off
+//   16 bytes): one warp per 16-row strip (a head's ⌈S/16⌉ strips split over
+//   ⌈strips/8⌉ blocks), m16n8k16 with Q and K fragments by `ldmatrix.x4` and V
+//   by `ldmatrix.x4.trans`; shared rows padded by 8 halves ((DP+8)·2 is an
+//   odd number of 16-byte units), so the 8 rows of each 8×8 matrix fall in 8
+//   distinct bank groups: conflict-free ldmatrix.  A tile that
 //   is full and needs no mask runs a straight-line body; only the ragged one
 //   is guarded (branches between each ldmatrix and its MMAs had stalled every
 //   fragment load).
@@ -53,18 +64,17 @@
 //   last key (or, causal, past the block's last row) loads only its groups,
 //   causal tiles above a warp's diagonal get P = 0, and the mask runs only on
 //   tiles that cross the last key or the diagonal.  K/V stream through a
-//   kStages-deep cp.async ring (16-byte cp.async.cg, zero-fill past the
-//   sequence and past dh), one commit group and one block barrier per tile;
-//   Q is loaded once per warp, asynchronously, and its slot later stages the
-//   output for 16-byte stores.
+//   kStages-deep ring (on the wgmma route at dh ≤ 64 by 16-byte cp.async.cg,
+//   zero-fill past the sequence and past dh, one commit group and one block
+//   barrier per tile; on the mma.sync route by element copies); Q is loaded
+//   once per warp, and its slot later stages the output for the stores.
 // - Math: logits, softmax and accumulation in f32.  Logits are scaled into
 //   the log2 domain by one FFMA with the running max folded in and
 //   exponentiated with ex2.approx; the running max is guarded so that (-inf) -
 //   (-inf) never occurs.  The probabilities stay in registers (the C
 //   fragments of two n-tiles are the A fragment of one k-step), rounded to
 //   bf16 before P·V as the plain version casts them to v's dtype; row sums
-//   stay f32.  The non-vectorised route is the same body with synchronous
-//   element loads and stores.
+//   stay f32.
 // - f32: a scalar-FMA kernel with 32-row query tiles streaming 64-key tiles.
 //   It exists for f32 callers and parity checks, not for speed.
 //
@@ -72,6 +82,7 @@
 // `clip_retrieval_tpu_torch/ops/flash.py::flash_attention_packed` (K1) and
 // `::flash_attention` (K2).
 
+#include <cuda.h>  // CUtensorMap and its enums; libcuda's encoder is looked up at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -332,7 +343,7 @@ __device__ __forceinline__ void store_strip(__nv_bfloat16* ob, __nv_bfloat16* sQ
   }
 }
 
-template <int DP, bool VEC>
+template <int DP>
 __global__ void __launch_bounds__(kMaxWarps * 32)
     flash_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                       const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, Layout L, int dh,
@@ -364,13 +375,13 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   {
     __nv_bfloat16* const dst[1] = {sQ};
     const __nv_bfloat16* const src[1] = {q + qbase};
-    load_rows<DP, VEC>(dst, src, w_row, has_rows ? 16 : 0, L.sq, L.q_row, dh, lane, 32);
+    load_rows<DP, false>(dst, src, w_row, has_rows ? 16 : 0, L.sq, L.q_row, dh, lane, 32);
   }
   cp_async_commit();
   auto load_tile = [&](int t) {
     __nv_bfloat16* const dst[2] = {sKV + (t % kStages) * 2 * kBN * LD, sKV + ((t % kStages) * 2 + 1) * kBN * LD};
     const int n0 = t * kBN;
-    load_rows<DP, VEC>(dst, kv_src, n0, min(kBN, (kv_end - n0 + 15) / 16 * 16), L.sk, L.k_row, dh, threadIdx.x,
+    load_rows<DP, false>(dst, kv_src, n0, min(kBN, (kv_end - n0 + 15) / 16 * 16), L.sk, L.k_row, dh, threadIdx.x,
                        blockDim.x);
   };
 #pragma unroll
@@ -414,7 +425,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   cp_async_wait<0>();
   if (!has_rows) return;
 
-  store_strip<DP, VEC>(o + qbase, sQ, acc, l_run, w_row, L.sq, L.q_row, dh, lane);
+  store_strip<DP, false>(o + qbase, sQ, acc, l_run, w_row, L.sq, L.q_row, dh, lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -427,18 +438,24 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
 constexpr int kWgMax = 2;                // warpgroups per block
 constexpr int kTileBytes = kBN * 128;    // a 64-key tile of 64 bf16 columns: 128-byte rows
 
-// Descriptor of a shared tile of 128-byte rows in the 128-byte swizzle (16-byte
-// chunk c of row r at chunk c ^ (r & 7); 8-row groups 1024 bytes apart).  The
-// same form serves K as Bᵀ (K-major) and V as B (N-major, transposed operand).
-__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+// Descriptor of a shared panel of ROW_BYTES-byte rows in the swizzle of that
+// width (16-byte chunk c of row r at chunk c ^ ((r·ROW_BYTES / 128) mod
+// chunks); 8-row groups 8·ROW_BYTES bytes apart).  The same form serves K as
+// Bᵀ (K-major) and V as B (N-major, transposed operand).
+template <int ROW_BYTES>
+__device__ __forceinline__ uint64_t sw_desc(const void* p) {
+  constexpr uint64_t kMode = ROW_BYTES == 128 ? 1 : ROW_BYTES == 64 ? 2 : 3;  // 128-, 64-, 32-byte swizzle
   const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(8 * ROW_BYTES >> 4) << 32) |
+         (kMode << 62);
 }
 
-// d[64×64] (+)= A[64×16]·B[16×64] for the warpgroup.  TRANS_B = 1: B is stored
-// N-contiguous (V rows); 0: B is stored as Bᵀ, K-contiguous (K rows).
-template <int TRANS_B>
-__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[kBN / 8][4], const uint32_t (&a)[4], uint64_t desc,
+
+// d[OFF .. OFF + N/8) of the 64×N accumulator (+)= A[64×16]·B[16×N] for the
+// warpgroup.  TRANS_B = 1: B is stored N-contiguous (V rows); 0: B is stored
+// as Bᵀ, K-contiguous (K rows).
+template <int TRANS_B, int NA = kBN / 8, int OFF = 0>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[NA][4], const uint32_t (&a)[4], uint64_t desc,
                                                 int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
@@ -446,12 +463,60 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[kBN / 8][4], const ui
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
       "{%32, %33, %34, %35}, %36, p, 1, 1, %37;\n}\n"
+      : "+f"(d[OFF + 0][0]), "+f"(d[OFF + 0][1]), "+f"(d[OFF + 0][2]), "+f"(d[OFF + 0][3]), "+f"(d[OFF + 1][0]),
+        "+f"(d[OFF + 1][1]), "+f"(d[OFF + 1][2]), "+f"(d[OFF + 1][3]), "+f"(d[OFF + 2][0]), "+f"(d[OFF + 2][1]),
+        "+f"(d[OFF + 2][2]), "+f"(d[OFF + 2][3]), "+f"(d[OFF + 3][0]), "+f"(d[OFF + 3][1]), "+f"(d[OFF + 3][2]),
+        "+f"(d[OFF + 3][3]), "+f"(d[OFF + 4][0]), "+f"(d[OFF + 4][1]), "+f"(d[OFF + 4][2]), "+f"(d[OFF + 4][3]),
+        "+f"(d[OFF + 5][0]), "+f"(d[OFF + 5][1]), "+f"(d[OFF + 5][2]), "+f"(d[OFF + 5][3]), "+f"(d[OFF + 6][0]),
+        "+f"(d[OFF + 6][1]), "+f"(d[OFF + 6][2]), "+f"(d[OFF + 6][3]), "+f"(d[OFF + 7][0]), "+f"(d[OFF + 7][1]),
+        "+f"(d[OFF + 7][2]), "+f"(d[OFF + 7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "n"(TRANS_B), "r"(scale_d));
+}
+
+// d[64×64] (+)= A[64×16]·B[16×64] with both operands read by the tensor cores
+// from shared memory: A (Q) and Bᵀ (K) K-contiguous.
+__device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[kBN / 8][4], uint64_t desc_a, uint64_t desc_b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]),
         "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
         "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]),
         "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
         "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
         "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+template <int TRANS_B, int NA, int OFF>
+__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[NA][4], const uint32_t (&a)[4], uint64_t desc,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %22, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, %21;\n}\n"
+      : "+f"(d[OFF + 0][0]), "+f"(d[OFF + 0][1]), "+f"(d[OFF + 0][2]), "+f"(d[OFF + 0][3]), "+f"(d[OFF + 1][0]),
+        "+f"(d[OFF + 1][1]), "+f"(d[OFF + 1][2]), "+f"(d[OFF + 1][3]), "+f"(d[OFF + 2][0]), "+f"(d[OFF + 2][1]),
+        "+f"(d[OFF + 2][2]), "+f"(d[OFF + 2][3]), "+f"(d[OFF + 3][0]), "+f"(d[OFF + 3][1]), "+f"(d[OFF + 3][2]),
+        "+f"(d[OFF + 3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "n"(TRANS_B), "r"(scale_d));
+}
+
+template <int TRANS_B, int NA, int OFF>
+__device__ __forceinline__ void wgmma_m64n16k16(float (&d)[NA][4], const uint32_t (&a)[4], uint64_t desc,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %14, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, %13;\n}\n"
+      : "+f"(d[OFF + 0][0]), "+f"(d[OFF + 0][1]), "+f"(d[OFF + 0][2]), "+f"(d[OFF + 0][3]), "+f"(d[OFF + 1][0]),
+        "+f"(d[OFF + 1][1]), "+f"(d[OFF + 1][2]), "+f"(d[OFF + 1][3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "n"(TRANS_B), "r"(scale_d));
 }
 
@@ -463,15 +528,39 @@ __device__ __forceinline__ void wgmma_wait() {
 }
 
 // After the wait: the accumulators are written now, not when the wgmma was issued.
-__device__ __forceinline__ void wgmma_settle(float (&d)[kBN / 8][4]) {
+template <int NA>
+__device__ __forceinline__ void wgmma_settle(float (&d)[NA][4]) {
 #pragma unroll
-  for (int i = 0; i < kBN / 8; ++i)
+  for (int i = 0; i < NA; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[i][e])::"memory");
 }
 
 // cp.async writes (generic proxy) before wgmma reads (async proxy) of shared memory.
 __device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
+// mbarriers in shared memory, and the CTA's named barriers (0 is __syncthreads).
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// Until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred done;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra LAB_WAIT;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
 
 // K and V rows [n0, n0 + kBN) into 128-byte-swizzled tiles; rows ≥ sk and
 // columns ≥ dh are zero, so a ragged tile's unused keys are finite.
@@ -567,7 +656,7 @@ __global__ void __launch_bounds__(kWgMax * 128)
     const int n0 = t * kBN;
     const unsigned char* tK = ring + (t % kStages) * 2 * kTileBytes;
     const unsigned char* tV = ring + ((t + kStages - 1) % kStages) * 2 * kTileBytes + kTileBytes;  // tile t-1
-    const uint64_t dK = sw128_desc(tK), dV = sw128_desc(t > 0 ? tV : tK + kTileBytes);
+    const uint64_t dK = sw_desc<128>(tK), dV = sw_desc<128>(t > 0 ? tV : tK + kTileBytes);
 
     float s[kBN / 8][4];
     wgmma_fence();
@@ -604,7 +693,7 @@ __global__ void __launch_bounds__(kWgMax * 128)
   }
   // O += P·V of the last tile
   if (ntiles > 0) {
-    const uint64_t dV = sw128_desc(ring + ((ntiles - 1) % kStages) * 2 * kTileBytes + kTileBytes);
+    const uint64_t dV = sw_desc<128>(ring + ((ntiles - 1) % kStages) * 2 * kTileBytes + kTileBytes);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < NG; ++kk) wgmma_m64n64k16<1>(acc, pa[kk], dV + kk * (16 * 128 / 16), 1);
@@ -616,6 +705,277 @@ __global__ void __launch_bounds__(kWgMax * 128)
   if (!has_rows) return;
   store_strip<DP, true>(o + qbase, sQ, acc, l_run, w_row, L.sq, L.q_row, dh, lane);
 }
+
+// ---------------------------------------------------------------------------
+// The wgmma route above dh 64 (SigLIP's 72, ViT-H/14's 80, ViT-g/14's 88):
+// dh zero-padded to DP = 80, 96 or 128 (dh 97..112 as 128).  Same grid, rows
+// and math as at DP 64; what differs:
+// - A tile of Q, K or V is two column panels, each one swizzle atom wide:
+//   columns [0, 64) in the 128-byte swizzle, columns [64, DP) in the swizzle
+//   as wide as they are (32 bytes at DP 80, 64 at 96, 128 at 128).  S = Q·Kᵀ
+//   is DP/16 k-steps (5 at DP 80, none past DP), P·V an n64 product on panel 0
+//   and an n(DP − 64) one on panel 1 per 16 keys.
+// - Q is read by the tensor cores from shared memory (both operands of S from
+//   descriptors), which keeps DP 80 at ≤ 128 registers: two blocks an SM.
+// - TMA copies every tile (two boxes of 64 rows per operand, zero past the
+//   sequence and past dh): one thread issues them, and no other thread spends
+//   an instruction on a load (cp.async by every thread cost ~19 % of the call
+//   at (256, 729, 16×72)).  Slots are handed over by mbarriers: full[s]
+//   completes when the bytes of slot s have landed, empty[s] when every
+//   thread is done with the tile it held.
+// - 64-key tiles, and no ping-pong between a block's warpgroups: at DP 80,
+//   128-key tiles (171 registers, one block an SM) and a ping-pong by named
+//   barriers were both slower (tools/ab_flash.py, H100).
+namespace wide {
+
+// O's columns [64, DP) (+)= P[64×16]·V over panel 1 (N = DP − 64).
+template <int DP>
+__device__ __forceinline__ void wgmma_panel1_pv(float (&d)[DP / 8][4], const uint32_t (&a)[4], uint64_t desc) {
+  if constexpr (DP == 80)
+    wgmma_m64n16k16<1, DP / 8, 8>(d, a, desc, 1);
+  else if constexpr (DP == 96)
+    wgmma_m64n32k16<1, DP / 8, 8>(d, a, desc, 1);
+  else
+    wgmma_m64n64k16<1, DP / 8, 8>(d, a, desc, 1);
+}
+
+// The TMA maps of one call: Q, K and V, each as panel 0 and panel 1.
+struct Maps {
+  CUtensorMap q0, q1, k0, k1, v0, v1;
+};
+
+__device__ __forceinline__ void expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+
+// The box of `map` at coordinates (c0, c1, c2, c3) into shared memory at dst;
+// its bytes count down `bar`'s transaction count.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], "
+      "[%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// rows_outer: the maps order their dimensions (dh, heads, rows, batch) (K1's
+// packed layout) rather than (dh, rows, heads, batch) (K2's), so that strides
+// grow.
+template <int DP>
+__global__ void __launch_bounds__(kWgMax * 128)
+    flash_wgmma_kernel(__nv_bfloat16* __restrict__ o, Layout L, int dh, float scale_log2, int causal, int rows_outer,
+                       const __grid_constant__ Maps maps) {
+  constexpr int LD = DP + 8, NG = kBN / 16;
+  constexpr int kTile = kBN * 2 * DP;   // bytes of a Q, K or V tile: panel 0 (kTileBytes), then panel 1
+  constexpr int kRow1 = 2 * (DP - 64);  // panel 1's row bytes
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // the K/V ring at a 1024-byte boundary, where the swizzle pattern starts
+  const uint32_t base = smem_u32(smem_raw);
+  unsigned char* ring = smem_raw + ((1024 - (base & 1023)) & 1023);  // [kStages][K, V][kTile]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wg = warp >> 2, wgs = blockDim.x >> 7;
+  // per warpgroup 64·LD·2 bytes: its 64 rows of Q, then each warp's 16 output rows [16][LD] staged for the stores
+  unsigned char* qs = ring + kStages * 2 * kTile;
+  unsigned char* wgQ = qs + wg * 64 * LD * 2;
+  __nv_bfloat16* sO = reinterpret_cast<__nv_bfloat16*>(wgQ) + (warp & 3) * 16 * LD;
+  uint64_t* full = reinterpret_cast<uint64_t*>(qs + wgs * 64 * LD * 2);
+  uint64_t* empty = full + kStages;
+  uint64_t* qbar = empty + kStages;
+
+  // this block's 64-row groups of the head, split evenly over gridDim.x blocks; one per warpgroup
+  const int groups = (L.sq + 63) / 64;
+  const int g_begin = (int)((long long)blockIdx.x * groups / gridDim.x);
+  const int g_end = (int)((long long)(blockIdx.x + 1) * groups / gridDim.x);
+  const int w_row = g_begin * 64 + warp * 16;  // this warp's first query row
+  const bool has_rows = w_row < min(g_end * 64, L.sq);
+  const int row_end = min(g_end * 64, L.sq);
+  // keys the block and this warp need: causal stops at the last row
+  const int kv_end = causal ? min(L.sk, row_end) : L.sk;
+  const int w_kv_end = !has_rows ? 0 : causal ? min(L.sk, min(w_row + 16, L.sq)) : L.sk;
+  const int ntiles = (kv_end + kBN - 1) / kBN;
+  const int head = blockIdx.y, batch = blockIdx.z;
+
+  // both panels of 64 rows from `row` on of one operand into dst, on `bar`
+  auto load = [&](unsigned char* dst, const CUtensorMap& p0, const CUtensorMap& p1, uint64_t* bar, int row) {
+    const int c1 = rows_outer ? head : row, c2 = rows_outer ? row : head;
+    tma_load(dst, &p0, bar, 0, c1, c2, batch);
+    tma_load(dst + kTileBytes, &p1, bar, 64, c1, c2, batch);
+  };
+  auto load_tile = [&](int t) {
+    unsigned char* dst = ring + (t % kStages) * 2 * kTile;
+    uint64_t* bar = full + t % kStages;
+    expect_tx(bar, 2 * kTile);
+    load(dst, maps.k0, maps.k1, bar, t * kBN);
+    load(dst + kTile, maps.v0, maps.v1, bar, t * kBN);
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, blockDim.x);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");  // the inits, before the copies use them
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    expect_tx(qbar, wgs * kTile);
+    for (int w = 0; w < wgs; ++w) load(qs + w * 64 * LD * 2, maps.q0, maps.q1, qbar, g_begin * 64 + w * 64);
+    for (int t = 0; t < kStages - 2 && t < ntiles; ++t) load_tile(t);
+  }
+  const uint64_t dQ = sw_desc<128>(wgQ), dQ1 = sw_desc<kRow1>(wgQ + kTileBytes);
+
+  float acc[DP / 8][4];
+#pragma unroll
+  for (int i = 0; i < DP / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.f, 0.f};
+
+  // Per warpgroup the same software pipeline as at DP 64: S(t) and P(t-1)·V(t-1)
+  // issued together, the softmax of tile t under the second.  Tile t+2 is
+  // loaded at the end of step t into the slot of tile t-2 (kStages = 4).
+  mbar_wait(qbar, 0);
+  uint32_t pa[NG][4] = {};  // P of the previous tile; zero before the first
+  for (int t = 0; t < ntiles; ++t) {
+    mbar_wait(full + t % kStages, (t / kStages) & 1);  // tile t has landed
+
+    // Every warpgroup runs both products on every tile, whether it needs the
+    // tile or not (a warpgroup past the sequence, or causal above its diagonal):
+    // a wgmma on a path ptxas cannot prove uniform is serialised.  Rows and
+    // keys a warp does not need get P = 0.
+    const int n0 = t * kBN;
+    const unsigned char* tK = ring + (t % kStages) * 2 * kTile;
+    const unsigned char* pV = t > 0 ? ring + ((t + kStages - 1) % kStages) * 2 * kTile + kTile : tK + kTile;
+    const uint64_t dK = sw_desc<128>(tK), dK1 = sw_desc<kRow1>(tK + kTileBytes);
+    const uint64_t dV = sw_desc<128>(pV), dV1 = sw_desc<kRow1>(pV + kTileBytes);
+
+    float s[kBN / 8][4];
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) wgmma_ss_m64n64k16(s, dQ + 2 * ks, dK + 2 * ks, ks > 0);  // +32 bytes of dh
+#pragma unroll
+    for (int ks = 4; ks < DP / 16; ++ks) wgmma_ss_m64n64k16(s, dQ1 + 2 * (ks - 4), dK1 + 2 * (ks - 4), 1);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < NG; ++kk) {
+      wgmma_m64n64k16<1, DP / 8>(acc, pa[kk], dV + kk * (16 * 128 / 16), 1);  // +16 keys
+      wgmma_panel1_pv<DP>(acc, pa[kk], dV1 + kk * (16 * kRow1 / 16));
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // S(t) has landed; P(t-1)·V(t-1) may still run
+    wgmma_settle(s);
+
+    float alpha[2] = {1.f, 1.f};
+    const int kn = min(kBN, w_kv_end - n0);
+    if (kn > 0) {
+      const int kg = (kn + 15) / 16;
+      const bool need_mask = n0 + kg * 16 > L.sk || (causal && n0 + kg * 16 - 1 > w_row);
+      if (kg == NG && !need_mask)
+        online_softmax<true>(s, alpha, m_run, l_run, kg, false, n0, w_row, L.sk, causal, scale_log2, lane);
+      else
+        online_softmax<false>(s, alpha, m_run, l_run, kg, need_mask, n0, w_row, L.sk, causal, scale_log2, lane);
+    }
+    wgmma_wait<0>();
+    wgmma_settle(acc);
+    if (t > 0) mbar_arrive(empty + (t - 1) % kStages);  // tile t-1: read by S(t-1) and P(t-1)·V(t-1)
+    if (warp == 0) {
+      const int next = t + kStages - 2, prev = next - kStages;  // the tile to load, the slot's last tile
+      if (lane == 0 && next < ntiles) {
+        if (prev >= 0) mbar_wait(empty + next % kStages, (prev / kStages) & 1);
+        load_tile(next);
+      }
+      __syncwarp();
+    }
+    rescale(acc, alpha);
+    const int kg = kn > 0 ? (kn + 15) / 16 : 0;  // no rows here, or above the warp's diagonal: P = 0
+#pragma unroll
+    for (int kk = 0; kk < NG; ++kk) {
+      if (kk < kg)
+        pack_p(pa[kk], s[2 * kk], s[2 * kk + 1]);
+      else
+        pa[kk][0] = pa[kk][1] = pa[kk][2] = pa[kk][3] = 0u;
+    }
+  }
+  // O += P·V of the last tile
+  const unsigned char* lV = ring + ((ntiles - 1) % kStages) * 2 * kTile + kTile;
+  const uint64_t dV = sw_desc<128>(lV), dV1 = sw_desc<kRow1>(lV + kTileBytes);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < NG; ++kk) {
+    wgmma_m64n64k16<1, DP / 8>(acc, pa[kk], dV + kk * (16 * 128 / 16), 1);
+    wgmma_panel1_pv<DP>(acc, pa[kk], dV1 + kk * (16 * kRow1 / 16));
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  wgmma_settle(acc);
+  named_sync(1 + wg, 128);  // the warpgroup's products have read Q before its rows are overwritten
+  if (!has_rows) return;
+  const size_t qbase = (size_t)batch * L.q_batch + (size_t)head * L.q_head;
+  store_strip<DP, true>(o + qbase, sO, acc, l_run, w_row, L.sq, L.q_row, dh, lane);
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, looked up through the CUDA runtime (nothing links libcuda).
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const bool ok = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) == cudaSuccess &&
+                    found == cudaDriverEntryPointSuccess;
+    return ok ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// The map of columns [col, col + width) of one operand (rows, heads, batch;
+// element strides row, head, bat), boxes of one head's 64 rows in the swizzle
+// `sw`; columns ≥ dh and rows ≥ rows read as zero.
+bool encode(CUtensorMap* map, const void* ptr, int dh, int rows, int heads, int batch, long long row, long long head,
+            long long bat, int width, CUtensorMapSwizzle sw, bool rows_outer) {
+  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)(rows_outer ? heads : rows),
+                              (cuuint64_t)(rows_outer ? rows : heads), (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)(2 * (rows_outer ? head : row)), (cuuint64_t)(2 * (rows_outer ? row : head)),
+                                 (cuuint64_t)(2 * bat)};
+  const cuuint32_t box[4] = {(cuuint32_t)width, rows_outer ? 1u : (cuuint32_t)kBN, rows_outer ? (cuuint32_t)kBN : 1u, 1u};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DP>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, const Layout& L, int batch, int heads, int dh,
+                   float scale_log2, int causal, cudaStream_t stream) {
+  if (encode_tiled() == nullptr) return cudaErrorNotSupported;
+  constexpr CUtensorMapSwizzle kSw1 =
+      DP == 80 ? CU_TENSOR_MAP_SWIZZLE_32B : DP == 96 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
+  const bool rows_outer = L.k_head < L.k_row;
+  Maps m;
+  const bool ok =
+      encode(&m.q0, q, dh, L.sq, heads, batch, L.q_row, L.q_head, L.q_batch, 64, CU_TENSOR_MAP_SWIZZLE_128B, rows_outer) &&
+      encode(&m.q1, q, dh, L.sq, heads, batch, L.q_row, L.q_head, L.q_batch, DP - 64, kSw1, rows_outer) &&
+      encode(&m.k0, k, dh, L.sk, heads, batch, L.k_row, L.k_head, L.k_batch, 64, CU_TENSOR_MAP_SWIZZLE_128B, rows_outer) &&
+      encode(&m.k1, k, dh, L.sk, heads, batch, L.k_row, L.k_head, L.k_batch, DP - 64, kSw1, rows_outer) &&
+      encode(&m.v0, v, dh, L.sk, heads, batch, L.k_row, L.k_head, L.k_batch, 64, CU_TENSOR_MAP_SWIZZLE_128B, rows_outer) &&
+      encode(&m.v1, v, dh, L.sk, heads, batch, L.k_row, L.k_head, L.k_batch, DP - 64, kSw1, rows_outer);
+  if (!ok) return cudaErrorInvalidValue;
+  const int groups = (L.sq + 63) / 64;
+  const int splits = (groups + kWgMax - 1) / kWgMax;
+  const int wgs = (groups + splits - 1) / splits;
+  const size_t smem = 1024 + (size_t)kStages * 2 * kBN * 2 * DP + (size_t)wgs * 64 * (DP + 8) * sizeof(__nv_bfloat16) +
+                      (2 * kStages + 1) * sizeof(uint64_t);
+  auto kern = flash_wgmma_kernel<DP>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(splits, heads, batch);
+  kern<<<grid, wgs * 128, smem, stream>>>(static_cast<__nv_bfloat16*>(o), L, dh, scale_log2, causal, rows_outer, m);
+  return cudaGetLastError();
+}
+
+}  // namespace wide
 
 // f32: 32 query rows per block, 4 threads per row.  Scalar FMAs throughout.
 constexpr int kBMF = 32;
@@ -715,14 +1075,14 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int DP, bool VEC>
+template <int DP>
 cudaError_t launch_bf16_route(const void* q, const void* k, const void* v, void* o, const Layout& L, int batch,
                               int heads, int dh, float scale_log2, int causal, cudaStream_t stream) {
   const int strips = (L.sq + 15) / 16;
   const int splits = (strips + kMaxWarps - 1) / kMaxWarps;
   const int warps = (strips + splits - 1) / splits;
   const size_t smem = ((size_t)kStages * 2 * kBN + (size_t)warps * 16) * (DP + 8) * sizeof(__nv_bfloat16);
-  auto kern = flash_bf16_kernel<DP, VEC>;
+  auto kern = flash_bf16_kernel<DP>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid(splits, heads, batch);
@@ -747,15 +1107,16 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, c
   return cudaGetLastError();
 }
 
+// vec (`ops/flash.py::kernel_route` sets it) takes the wgmma route: the DP-64
+// kernel for dh ≤ 64, `wide` above (DP 112 as 128); the others take mma.sync.
 template <int DP>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, const Layout& L, int batch,
                         int heads, int dh, float scale_log2, int causal, int vec, cudaStream_t stream) {
-  if (!vec) return launch_bf16_route<DP, false>(q, k, v, o, L, batch, heads, dh, scale_log2, causal, stream);
-  if constexpr (DP <= 64) {
+  if (!vec) return launch_bf16_route<DP>(q, k, v, o, L, batch, heads, dh, scale_log2, causal, stream);
+  if constexpr (DP <= 64)
     return launch_wgmma(q, k, v, o, L, batch, heads, dh, scale_log2, causal, stream);
-  } else {
-    return launch_bf16_route<DP, true>(q, k, v, o, L, batch, heads, dh, scale_log2, causal, stream);
-  }
+  else
+    return wide::launch<DP == 112 ? 128 : DP>(q, k, v, o, L, batch, heads, dh, scale_log2, causal, stream);
 }
 
 template <int DP>
@@ -817,8 +1178,9 @@ int launch(const void* q, const void* k, const void* v, void* o, const Layout& L
 extern "C" {
 
 // K1. q, k, v, o: contiguous (batch, seq, heads*dh) device buffers of one
-// dtype (0 = float32, 1 = bfloat16).  vec: bf16 only, 1 when dh % 8 == 0 and
-// every pointer is 16-byte aligned.  Returns a cudaError_t value (0 on
+// dtype (0 = float32, 1 = bfloat16).  vec: bf16 only, 1 takes the wgmma route,
+// which needs dh % 8 == 0 and every pointer 16-byte aligned (the caller's
+// `ops/flash.py::kernel_route` decides).  Returns a cudaError_t value (0 on
 // success); the caller checks it: a refused launch never runs.
 int crt_flash_packed(const void* q, const void* k, const void* v, void* o, int batch, int seq, int heads,
                      int dh, int causal, int dtype, int vec, void* stream) {

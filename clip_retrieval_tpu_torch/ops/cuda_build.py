@@ -179,10 +179,12 @@ class Kernel:
         lib = load_library(self.library)
         self._lib, self._fn = lib, getattr(lib, self.entry)
 
-    def launch(self, counter, device: torch.device, where, *args) -> None:
+    def launch(self, counter, device: torch.device, where, *args, route: str | None = None) -> None:
         """Run the entry on `device`'s current stream with `args`, then add one
-        to `counter.launches` (the wrapper function).  A non-zero return
-        raises RuntimeError naming the error and `where()`, the call's shape."""
+        to `counter.launches` (the wrapper function) and, given the device
+        route the call took, to `counter.launches_by_route[route]`.  A
+        non-zero return raises RuntimeError naming the error and `where()`,
+        the call's shape."""
         if self._fn is None:
             self.load()
         with torch.cuda.device(device):
@@ -192,3 +194,5 @@ class Kernel:
             raise RuntimeError(f"{self.entry} kernel launch failed ({rc}: {msg}) at {where()}")
         with _COUNT_LOCK:
             counter.launches += 1
+            if route is not None:
+                counter.launches_by_route[route] += 1

@@ -8,7 +8,8 @@ Counterparts of `clip_retrieval_tpu/ops/flash.py::flash_attention_packed`
 wrapper launches it or raises; on CPU tensors it runs its plain version, the
 same math in plain PyTorch.  Which one runs depends only on where the tensors
 live (`cuda_build.route`).  Each wrapper counts its own launches
-(`cuda_build.Kernel.launch`).
+(`cuda_build.Kernel.launch`), in all and by the device route that
+`kernel_route` chooses.
 """
 
 from __future__ import annotations
@@ -22,6 +23,17 @@ _PACKED = cuda_build.Kernel(LIBRARY, "crt_flash_packed")
 _BHSD = cuda_build.Kernel(LIBRARY, "crt_flash_bhsd")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
+ROUTES = ("wgmma", "mma_sync", "f32")  # the kernel's device routes (csrc/flash_packed.cu)
+
+
+def kernel_route(dtype: torch.dtype, dh: int, ptrs: list[int]) -> str:
+    """The device route of one call: f32 takes the f32 kernel; bf16 with dh %
+    8 == 0 and every pointer 16-byte aligned (16-byte loads) takes the wgmma
+    route at any dh ≤ 128; other bf16 calls the mma.sync route.  The kernel
+    takes the wgmma route exactly when it is handed `vec` = 1."""
+    if dtype == torch.float32:
+        return "f32"
+    return "wgmma" if dh % 8 == 0 and all(p % 16 == 0 for p in ptrs) else "mma_sync"
 
 
 def flash_attention_packed_reference(
@@ -77,13 +89,14 @@ def flash_attention_packed(
     if out.numel() == 0:
         return out
     ptrs = [t.data_ptr() for t in (q, k, v, out)]
-    vec = int(q.dtype == torch.bfloat16 and dh % 8 == 0 and all(p % 16 == 0 for p in ptrs))
+    path = kernel_route(q.dtype, dh, ptrs)
     _PACKED.launch(flash_attention_packed, q.device, lambda: f"B={b} S={s} heads={heads} dh={dh}",
-                   *ptrs, b, s, heads, dh, int(causal), _DTYPE_CODE[q.dtype], vec)
+                   *ptrs, b, s, heads, dh, int(causal), _DTYPE_CODE[q.dtype], int(path == "wgmma"), route=path)
     return out
 
 
 flash_attention_packed.launches = 0  # kernel launches, counted only where the kernel launches
+flash_attention_packed.launches_by_route = dict.fromkeys(ROUTES, 0)  # the same, by `kernel_route`
 
 
 def flash_attention_reference(
@@ -125,10 +138,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     if out.numel() == 0:
         return out
     ptrs = [t.data_ptr() for t in (q, k, v, out)]
-    vec = int(q.dtype == torch.bfloat16 and dh % 8 == 0 and all(p % 16 == 0 for p in ptrs))
+    path = kernel_route(q.dtype, dh, ptrs)
     _BHSD.launch(flash_attention, q.device, lambda: f"B={b} H={h} Sq={sq} Sk={sk} dh={dh}",
-                 *ptrs, b, h, sq, sk, dh, int(causal), _DTYPE_CODE[q.dtype], vec)
+                 *ptrs, b, h, sq, sk, dh, int(causal), _DTYPE_CODE[q.dtype], int(path == "wgmma"), route=path)
     return out
 
 
 flash_attention.launches = 0  # kernel launches, counted only where the kernel launches
+flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)  # the same, by `kernel_route`

@@ -9,9 +9,14 @@ same nvcc flags into `build/ab_flash/`, in parallel, checks that each gives
 this checkout's output on the same inputs (bf16 max abs and min row cosine),
 reports each build's bf16 kernels as `nvcc -Xptxas -v` gives them
 (registers, spill stores and loads, by mangled name), and times all with
-CUDA events, bf16, at the towers' shapes: K1 at the image tower's (256, 257,
-16×64) and the text tower's (256, 77, 12×64, causal), K2 at (256, 16, 257,
-64) and (256, 12, 77, 64, causal).  `F.scaled_dot_product_attention` on the
+CUDA events, bf16, at the towers' shapes: K1 at ViT-L/14's image (256, 257,
+16×64) and text (256, 77, 12×64, causal) shapes and SigLIP So400m/384's
+image (256, 729, 16×72) and bidirectional text (256, 64, 16×72) shapes, K2
+at (256, 16, 257, 64), (256, 12, 77, 64, causal) and (256, 16, 729, 72),
+and K1 at the other head widths above 64 that pick the route per padded
+width (ViT-H/14's 16×80 and ViT-g/14's 16×88 at S 257, and 8×128).  Each
+row carries its bound (q, k, v and o moved once over 3.35 TB/s against the
+products over 989 TFLOP/s).  `F.scaled_dot_product_attention` on the
 same inputs in the (B, H, S, dh) layout is timed beside them as the
 yardstick; the port never calls it.  Each round runs SDPA, the others, this,
 this, the others in reverse, SDPA, so a drift of the card's clock during the
@@ -36,20 +41,41 @@ from ..ops.cuda_build import CHECKOUT, NVCC_FLAGS, declare, nvcc_path
 
 # (entry, B, S, heads, dh, causal)
 SHAPES = [("packed", 256, 257, 16, 64, False), ("packed", 256, 77, 12, 64, True),
-          ("bhsd", 256, 257, 16, 64, False), ("bhsd", 256, 77, 12, 64, True)]
+          ("bhsd", 256, 257, 16, 64, False), ("bhsd", 256, 77, 12, 64, True),
+          ("packed", 256, 729, 16, 72, False), ("packed", 256, 64, 16, 72, False),
+          ("bhsd", 256, 729, 16, 72, False),
+          ("packed", 256, 257, 16, 80, False), ("packed", 256, 257, 16, 88, False),
+          ("packed", 256, 257, 8, 128, False)]
 BF16 = 1  # the dtype code of both entries
+HBM_BYTES_PER_S, BF16_FLOPS = 3.35e12, 989e12  # H100 SXM data sheet
+
+
+def bound_ms(b: int, s: int, heads: int, dh: int, causal: bool) -> float:
+    """The least time of one bf16 call: q, k, v and o moved once, or the
+    products (the causal half where causal), whichever takes longer."""
+    pairs = s * (s + 1) / 2 if causal else s * s
+    return 1e3 * max(4 * b * heads * s * dh * 2 / HBM_BYTES_PER_S, 4 * b * heads * pairs * dh / BF16_FLOPS)
+
+
+def _short(mangled: str) -> str | None:
+    m = re.search(r"(flash_(?:bf16|wgmma)_kernel(?:I\w*?E)?)E", mangled)
+    return m.group(1) if m else None
 
 
 def ptxas_report(log: str) -> dict:
-    """{kernel: {registers, spill_stores, spill_loads}} for the bf16 kernels in
-    `nvcc -Xptxas -v` output (mangled names shortened to the kernel and its
-    template arguments)."""
+    """{kernel: {registers, spill_stores, spill_loads[, warnings]}} for the bf16
+    kernels in `nvcc -Xptxas -v` output (mangled names shortened to the
+    kernel and its template arguments); `warnings` holds ptxas's warnings
+    about the kernel, such as C7520 (wgmma serialised)."""
     report, name = {}, None
     for line in log.splitlines():
+        m = re.search(r"ptxas warning\s*:\s*(.*)in the function '(\S+)'", line)
+        if m and _short(m.group(2)):
+            report.setdefault(_short(m.group(2)), {}).setdefault("warnings", []).append(m.group(1).strip())
+            continue
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            short = re.search(r"(flash_(?:bf16|wgmma)_kernel(?:I\w*?E)?)E", m.group(1))
-            name = short.group(1) if short else None
+            name = _short(m.group(1))
             continue
         if name is None:
             continue
@@ -139,7 +165,8 @@ def main(argv=None) -> int:
                 for name in others}
         mean = {name: sum(t) / len(t) for name, t in times.items()}
         rows.append({"entry": entry, "shape": [b, s, heads, dh], "causal": causal, "vs_this": diff, "ms": times,
-                     "mean_ms": mean, "this_over_other": mean["this"] / mean[others[0]],
+                     "mean_ms": mean, "bound_ms": bound_ms(b, s, heads, dh, causal),
+                     "this_over_other": mean["this"] / mean[others[0]],
                      "this_over_sdpa": mean["this"] / mean["sdpa"]})
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]

@@ -111,3 +111,134 @@ def test_cuda_kernel_matches_plain_version(dtype):
         ref = t_flash.flash_attention_packed_reference(q.float(), k.float(), v.float(), heads, causal=causal)
         err = (got.float() - ref).abs().max().item()
         assert err <= (2e-2 if dt == torch.bfloat16 else 1e-4), (heads, dh, seq, causal, err)
+
+
+def _aligned(n: int = 4) -> list[int]:
+    return [0x7F0000 + 256 * i for i in range(n)]
+
+
+@pytest.mark.parametrize("dtype,dh,ptrs,want", [
+    (torch.bfloat16, 64, _aligned(), "wgmma"),        # every CLIP tower's dh, as before
+    (torch.bfloat16, 32, _aligned(), "wgmma"),
+    (torch.bfloat16, 72, _aligned(), "wgmma"),        # SigLIP So400m
+    (torch.bfloat16, 80, _aligned(), "wgmma"),        # ViT-H/14's image tower
+    (torch.bfloat16, 88, _aligned(), "wgmma"),        # ViT-g/14's image tower
+    (torch.bfloat16, 128, _aligned(), "wgmma"),
+    (torch.bfloat16, 72, _aligned()[:3] + [0x7F0002], "mma_sync"),  # one pointer off 16 bytes
+    (torch.bfloat16, 20, _aligned(), "mma_sync"),     # dh % 8 != 0: element loads
+    (torch.float32, 72, _aligned(), "f32"),
+    (torch.float32, 64, _aligned(), "f32"),
+])
+def test_kernel_route_rule(dtype, dh, ptrs, want):
+    assert t_flash.kernel_route(dtype, dh, ptrs) == want
+
+
+@pytest.mark.parametrize("entry", ["packed", "bhsd"])
+@pytest.mark.parametrize("dtype,dh,offset,want", [
+    (torch.bfloat16, 72, 0, "wgmma"), (torch.bfloat16, 64, 0, "wgmma"),
+    (torch.bfloat16, 72, 1, "mma_sync"), (torch.float32, 72, 0, "f32"),
+])
+def test_wrappers_hand_the_kernel_its_route(monkeypatch, entry, dtype, dh, offset, want):
+    """The wrappers pass vec = 1 exactly for the wgmma route and count the
+    launch under the route (the kernel stubbed: CPU tensors posing as CUDA)."""
+    from clip_retrieval_tpu_torch.ops import cuda_build
+
+    calls = []
+
+    def launch(counter, device, where, *args, route=None):
+        calls.append((args, route))
+        counter.launches += 1
+        counter.launches_by_route[route] += 1
+
+    monkeypatch.setattr(cuda_build, "route", lambda name, *tensors: "cuda")
+    kernel = t_flash._PACKED if entry == "packed" else t_flash._BHSD
+    monkeypatch.setattr(kernel, "launch", launch)
+    shape = (2, 65, 3 * dh) if entry == "packed" else (2, 3, 65, dh)
+    n = int(np.prod(shape))
+    q, k, v = (torch.zeros(n + 8, dtype=dtype)[offset:offset + n].view(shape) for _ in range(3))
+    wrapper = t_flash.flash_attention_packed if entry == "packed" else t_flash.flash_attention
+    before = dict(wrapper.launches_by_route)
+    if entry == "packed":
+        wrapper(q, k, v, 3)
+    else:
+        wrapper(q, k, v)
+    (args, route), = calls
+    assert route == want and args[-1] == int(want == "wgmma")
+    assert wrapper.launches_by_route[want] == before[want] + 1
+
+
+# The wgmma route above dh 64 (two column panels): SigLIP So400m (72), ViT-H/14
+# (80), ViT-g/14 (88) and the widest head (128); the image (729), a ragged
+# (257) and the text (64) sequence lengths.
+WIDE = [(dh, seq) for dh in (72, 80, 88, 128) for seq in (64, 257, 729)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dh,seq", WIDE)
+def test_cuda_wide_heads_take_the_wgmma_route(dh, seq, causal):
+    """K1 on the wgmma route at dh above 64 against its plain version: the
+    bf16 bar of `test_cuda_kernel_matches_plain_version`, one launch counted
+    under `wgmma`."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    heads = 4
+    q, k, v = (torch.from_numpy(x).cuda().bfloat16() for x in _packed_inputs(heads, dh, seq, b=3, seed=dh + seq))
+    before = t_flash.flash_attention_packed.launches_by_route["wgmma"]
+    got = t_flash.flash_attention_packed(q, k, v, heads, causal=causal)
+    torch.cuda.synchronize()
+    assert t_flash.flash_attention_packed.launches_by_route["wgmma"] == before + 1
+    ref = t_flash.flash_attention_packed_reference(q.float(), k.float(), v.float(), heads, causal=causal)
+    err = (got.float() - ref).abs().max().item()
+    assert err <= 2e-2, (dh, seq, causal, err)
+
+
+def _off_by_one_element(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of x whose data starts one element past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 8, dtype=x.dtype, device=x.device)
+    out = buf[1:1 + x.numel()].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_cuda_unaligned_wide_heads_take_the_mma_sync_route(causal):
+    """dh 72 with pointers off 16 bytes stays on the mma.sync route, right."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    heads, dh, seq = 4, 72, 257
+    q, k, v = (_off_by_one_element(torch.from_numpy(x).cuda().bfloat16()) for x in _packed_inputs(heads, dh, seq, b=3))
+    before = t_flash.flash_attention_packed.launches_by_route["mma_sync"]
+    got = t_flash.flash_attention_packed(q, k, v, heads, causal=causal)
+    torch.cuda.synchronize()
+    assert t_flash.flash_attention_packed.launches_by_route["mma_sync"] == before + 1
+    ref = t_flash.flash_attention_packed_reference(q.float(), k.float(), v.float(), heads, causal=causal)
+    assert (got.float() - ref).abs().max().item() <= 2e-2
+
+
+def test_ab_flash_reads_ptxas_and_bounds():
+    """tools/ab_flash.py: registers, spills and C7520 warnings by kernel and
+    template arguments (the DP-64 kernel and a `wide` instance), and the
+    bound at SigLIP's image shape (products: 6.27e11 FLOP at 989 TFLOP/s)."""
+    from clip_retrieval_tpu_torch.tools import ab_flash
+
+    wide = "_ZN12_GLOBAL__N_14wide18flash_wgmma_kernelILi80EEEvP13__nv_bfloat16NS_6LayoutEifiiNS0_4MapsE"
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118flash_wgmma_kernelEPK13__nv_bfloat16S2_S2_"
+        "PS0_NS_6LayoutEifi' for 'sm_90a'",
+        "ptxas info    : Used 128 registers, 0 bytes smem",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        f"ptxas info    : Compiling entry function '{wide}' for 'sm_90a'",
+        "ptxas info    : Used 127 registers",
+        "    8 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads",
+        "ptxas warning : (C7520) Potential Performance Loss: wgmma.mma_async instructions are serialized due to "
+        f"insufficient register resources for the wgmma pipeline in the function '{wide}'",
+    ])
+    report = ab_flash.ptxas_report(log)
+    assert report["flash_wgmma_kernel"] == {"registers": 128, "spill_stores": 0, "spill_loads": 0}
+    assert report["flash_wgmma_kernelILi80E"]["registers"] == 127
+    assert report["flash_wgmma_kernelILi80E"]["spill_stores"] == 8
+    assert report["flash_wgmma_kernelILi80E"]["warnings"][0].startswith("(C7520)")
+    assert abs(ab_flash.bound_ms(256, 729, 16, 72, False) - 0.6339) < 1e-4
+    assert abs(ab_flash.bound_ms(256, 257, 16, 64, False) - 0.1609) < 1e-4  # bytes bound the ViT-L/14 shape

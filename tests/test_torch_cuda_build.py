@@ -152,6 +152,19 @@ def test_launch_counts_from_many_threads(monkeypatch):
     assert _counted.launches == 8 * 500
 
 
+def test_launch_counts_by_route(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "device", lambda device: nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device: type("S", (), {"cuda_stream": 0})())
+    monkeypatch.setattr(cuda_build, "load_library", lambda name: _Lib(0))
+    kernel = cuda_build.Kernel(flash.LIBRARY, "crt_flash_packed")
+    _counted.launches = 0
+    _counted.launches_by_route = {"wgmma": 0, "mma_sync": 0}
+    for route in ("wgmma", "wgmma", "mma_sync", None):
+        kernel.launch(_counted, torch.device("cpu"), str, route=route)
+    assert _counted.launches == 4
+    assert _counted.launches_by_route == {"wgmma": 2, "mma_sync": 1}
+
+
 def test_kernel_refuses_an_entry_outside_the_table():
     with pytest.raises(KeyError, match="not an entry"):
         cuda_build.Kernel(flash.LIBRARY, "crt_adc_scan")

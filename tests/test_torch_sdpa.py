@@ -105,3 +105,26 @@ def test_cuda_kernel_matches_plain_version(dtype):
             ref = t_flash.flash_attention_reference(q.float(), k.float(), v.float(), causal=causal)
             err = (got.float() - ref).abs().max().item()
             assert err <= (2e-2 if dt == torch.bfloat16 else 1e-4), (b, h, sq, sk, dh, causal, err)
+
+
+# K2 on the wgmma route above dh 64: Sq = Sk at the towers' lengths and a
+# ragged key count (Sk ≠ Sq, neither a multiple of 64).
+WIDE = [(dh, sq, sk) for dh in (72, 80, 88, 128) for sq, sk in ((64, 64), (257, 257), (729, 729), (100, 729))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dh,sq,sk", WIDE)
+def test_cuda_wide_heads_take_the_wgmma_route(dh, sq, sk, causal):
+    """K2 at dh above 64 against its plain version (K1's bf16 bar), one launch
+    counted under `wgmma`."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    q, k, v = (torch.from_numpy(a).cuda().bfloat16() for a in _inputs(2, 3, sq, sk, dh, seed=dh + sk))
+    before = t_flash.flash_attention.launches_by_route["wgmma"]
+    got = t_flash.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert t_flash.flash_attention.launches_by_route["wgmma"] == before + 1
+    ref = t_flash.flash_attention_reference(q.float(), k.float(), v.float(), causal=causal)
+    err = (got.float() - ref).abs().max().item()
+    assert err <= 2e-2, (dh, sq, sk, causal, err)
