@@ -11,7 +11,9 @@ model families' published widths:
 - embedding inference: the `inference` entry point, bf16, batch 256, image
   and text towers; the embeddings are checked, the bf16 kernel path is
   compared with the f32 plain path on the same weights, and the mapper and
-  kernel K1 are timed;
+  kernel K1 are timed; the same corpus through `inference` at
+  EVA02-L/14-336 (rotary q/k, the SwiGLU gate with its LayerNorm: the
+  block's two EVA02 kernels, checked and timed at its shapes beforehand);
 - the /knn-service query path: a synthetic IVF-int8 index at the repo's 10M
   serving shape (10,000,000 rows of d=768, nlist 16,384, nprobe 64) is
   generated on the card, saved, and served by the `back` entry point
@@ -86,7 +88,9 @@ Phases, each of which stops the script with a non-zero exit when it fails:
 device, build, K1 vs plain, K3 vs plain, K2 vs plain, K4 vs plain, block
 fused vs plain (the dense epilogue and the LayerNorm of `ops/block_fused.py`
 held to the eager chain and timed beside it at the ViT-L/14 and SigLIP
-So400m/384 towers' shapes), main path, tower parity, times, sdpa path, K1 at the ResNet text shapes, RN50
+So400m/384 towers' shapes), EVA02 fused vs plain (the rotary epilogue and the
+SwiGLU gate at EVA02-L/14-336's shapes), main path, EVA02 main path (the
+same corpus through `inference` at EVA02-L/14-336), tower parity, times, sdpa path, K1 at the ResNet text shapes, RN50
 main path, RN tower parity, convert, index build, combine IVF-int8 build,
 index, served path, recall, query times, IVF-PQ checks, combine IVF-PQ,
 combine IVF-int8, arrow, surface, end2end, filter, client, mclip, pod and
@@ -176,6 +180,10 @@ FUSED_TOWERS = {"vit-l-14 image": (BATCH * 257, 1024, 4096, "quick_gelu", 1e-5),
                 "siglip image": (BATCH * 729, 1152, 4304, "gelu_tanh", 1e-6),
                 "siglip text": (BATCH * 64, 1152, 4304, "gelu_tanh", 1e-6)}
 FUSED_MIN_EQUAL = 0.999  # share of bf16 elements equal to the eager chain's where an activation runs
+# EVA02-L/14-336 (the third cell's model) at batch 256: its image tower's rows, width, head dim, the rotary
+# reference grid, the SwiGLU hidden and that hidden padded (`models/clip.py::GLU_ALIGN`)
+EVA_MODEL = "EVA02-L-14-336"
+EVA_ROWS, EVA_SEQ, EVA_WIDTH, EVA_HEAD_DIM, EVA_HIDDEN, EVA_PADDED = BATCH * 577, 577, 1024, 64, 2730, 2736
 
 
 class PhaseError(Exception):
@@ -501,6 +509,61 @@ def phase_block_fused(block_fused, gpu: str) -> dict:
     return out
 
 
+def phase_eva_fused(block_fused, gpu: str) -> dict:
+    """EVA02's two fused passes against their plain versions (run on the
+    card) at the cell's shapes, bf16 batch 256: the rotary epilogue of q and
+    of k (256, 577, 1024), the class row unturned, and the SwiGLU gate with
+    its LayerNorm ((256·577, 2·2736) → (256·577, 2736), the hidden 2730, pad
+    columns zero).  Bars: one bf16 ulp, or 1e-6 (rotary) and 1e-5 (gate,
+    statistics summed in another order) where an output is near 0.  Each is
+    timed beside its plain version (the eager chain of torch ops) and its
+    byte bound.  Returns, for each, one image block's calls summed (2 rotary
+    calls, 1 gate)."""
+    import torch
+
+    from clip_retrieval_tpu_torch.models.clip import rope_table
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(21)
+    bf16 = torch.bfloat16
+    out = {}
+    acc = torch.randn(BATCH, EVA_SEQ, EVA_WIDTH, generator=gen, device="cuda") * 2
+    bias = torch.randn(EVA_WIDTH, generator=gen, device="cuda") * 0.5
+    table = rope_table(24, 16, EVA_HEAD_DIM).cuda()
+    kern = lambda: block_fused.rope_epilogue(acc, bias, table, prefix=1, dtype=bf16)  # noqa: E731
+    plain = lambda: block_fused.rope_reference(acc, bias, table, 1, bf16)  # noqa: E731
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    check(bool(((diff <= bf16_ulp(want)) | (diff <= 1e-6)).all()), "rope_epilogue more than one ulp off")
+    check(torch.equal(got[:, 0], (acc[:, 0] + bias).to(bf16)), "rope_epilogue turned the class row")
+    ms, plain_ms = time_pair(kern, plain)
+    bound = 1e3 * (EVA_ROWS * EVA_WIDTH * 6 + 4 * EVA_WIDTH + 4 * 576 * EVA_HEAD_DIM) / HBM_BPS
+    print(f"  [{gpu}] rope_epilogue ({BATCH}, {EVA_SEQ}, {EVA_WIDTH}) dh={EVA_HEAD_DIM}: {ms:.4f} ms/call, eager "
+          f"chain {plain_ms:.4f}, bound {bound:.4f} (bytes); max abs vs plain {diff.max().item():.3e}")
+    out["rope"] = {"ms": 2 * ms, "plain_ms": 2 * plain_ms, "bound_ms": 2 * bound, "max_abs_err": diff.max().item()}
+    del acc, got, want, diff
+    acc = torch.randn(EVA_ROWS, 2 * EVA_PADDED, generator=gen, device="cuda") * 1.5
+    bias = torch.randn(2 * EVA_PADDED, generator=gen, device="cuda") * 0.3
+    scale = torch.randn(EVA_HIDDEN, generator=gen, device="cuda") * 0.2 + 1
+    shift = torch.randn(EVA_HIDDEN, generator=gen, device="cuda") * 0.1
+    kern = lambda: block_fused.glu_layernorm(acc, bias, scale, shift, 1e-6, dtype=bf16)  # noqa: E731
+    plain = lambda: block_fused.glu_layernorm_reference(acc, bias, scale, shift, 1e-6, bf16)  # noqa: E731
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    check(bool(((diff <= bf16_ulp(want)) | (diff <= 1e-5)).all()), "glu_layernorm more than one ulp off")
+    check(not got[:, EVA_HIDDEN:].any(), "glu_layernorm wrote non-zero pad columns")
+    ms, plain_ms = time_pair(kern, plain)
+    bound = 1e3 * (EVA_ROWS * EVA_HIDDEN * 10 + 16 * EVA_HIDDEN) / HBM_BPS
+    print(f"  [{gpu}] glu_layernorm ({EVA_ROWS}, {EVA_HIDDEN} of {EVA_PADDED}): {ms:.4f} ms/call, eager chain "
+          f"{plain_ms:.4f}, bound {bound:.4f} (bytes); max abs vs plain {diff.max().item():.3e}")
+    out["glu"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "max_abs_err": diff.max().item()}
+    del acc, got, want, diff
+    torch.cuda.empty_cache()
+    return out
+
+
 def write_corpus(folder: str):
     from PIL import Image
 
@@ -513,37 +576,43 @@ def write_corpus(folder: str):
             f.write(f"a photo of sample number {i}, seed {int(rng.integers(1 << 20))}")
 
 
-def phase_main_path(kernels: dict, gpu: str) -> dict:
-    """The `inference` entry point over 512 JPEG+caption samples at
-    ViT-L/14 bf16 b256; returns the launch counts of that run (K1 and the
-    block's fused kernels are on this path)."""
+def phase_main_path(kernels: dict, gpu: str, model: str = MODEL) -> dict:
+    """The `inference` entry point over 512 JPEG+caption samples at `model`
+    (ViT-L/14, or EVA02-L/14-336 on the same corpus, written by the first)
+    bf16 b256, random weights; returns the launch counts of that run (K1 and
+    the block's fused kernels are on this path: at EVA02, the rotary
+    epilogue and the SwiGLU gate too)."""
     from clip_retrieval_tpu_torch.inference.main import main as clip_inference
+    from clip_retrieval_tpu_torch.models.configs import get_config
 
-    shutil.rmtree(WORK_DIR, ignore_errors=True)
-    corpus, out = f"{WORK_DIR}/corpus", f"{WORK_DIR}/out"
-    check(importlib.util.find_spec("PIL") is not None, "PIL is needed to write and decode the JPEG corpus")
-    for mod in ("pandas", "pyarrow"):
-        check(importlib.util.find_spec(mod) is not None, f"{mod} is needed to write the parquet metadata")
-    write_corpus(corpus)
+    cfg = get_config(model)
+    corpus, out = f"{WORK_DIR}/corpus", f"{WORK_DIR}/out-{model.replace('/', '-')}"
+    if model == MODEL:
+        shutil.rmtree(WORK_DIR, ignore_errors=True)
+        check(importlib.util.find_spec("PIL") is not None, "PIL is needed to write and decode the JPEG corpus")
+        for mod in ("pandas", "pyarrow"):
+            check(importlib.util.find_spec(mod) is not None, f"{mod} is needed to write the parquet metadata")
+        write_corpus(corpus)
     zero_counts(kernels)
     k1 = kernels["k1"]
     k1.launches_by_route = dict.fromkeys(k1.launches_by_route, 0)
     t0 = time.perf_counter()
     clip_inference(
-        input_dataset=corpus, output_folder=out, batch_size=BATCH, num_prepro_workers=8, clip_model=MODEL,
+        input_dataset=corpus, output_folder=out, batch_size=BATCH, num_prepro_workers=8, clip_model=model,
         device="cuda",
     )
     wall = time.perf_counter() - t0
     counts = read_counts(kernels)
     launches = counts["k1"]
     by_route = dict(k1.launches_by_route)
-    print(f"  [{gpu}] main path wall {wall:.2f} s on the host clock, 2 batches, including model init and "
-          f"JPEG decode; K1 launches {launches}, by route {by_route}")
+    print(f"  [{gpu}] main path {model} wall {wall:.2f} s on the host clock, 2 batches, including model init and "
+          f"JPEG decode; K1 launches {launches}, by route {by_route}; fused {counts}")
     for sub, name in (("img_emb", "img_emb_0.npy"), ("text_emb", "text_emb_0.npy")):
         emb = np.load(f"{out}/{sub}/{name}")
         norms = np.linalg.norm(emb.astype(np.float32), axis=-1)
         print(f"  {sub}: shape={emb.shape} dtype={emb.dtype} norm range [{norms.min():.5f}, {norms.max():.5f}]")
-        check(emb.shape == (SAMPLES, 768) and emb.dtype == np.float16, f"{sub} has shape {emb.shape} {emb.dtype}")
+        check(emb.shape == (SAMPLES, cfg.embed_dim) and emb.dtype == np.float16,
+              f"{sub} has shape {emb.shape} {emb.dtype}")
         check(bool(np.isfinite(emb).all()), f"{sub} has non-finite values")
         check(bool(np.all(np.abs(norms - 1) <= 1e-2)), f"{sub} norms leave 1 ± 1e-2")
     import pandas as pd
@@ -553,12 +622,18 @@ def phase_main_path(kernels: dict, gpu: str) -> dict:
     with open(f"{out}/stats/0.json") as f:
         stats = json.load(f)
     check(stats.get("sample_count") == SAMPLES, f"stats count {stats.get('sample_count')}")
-    expected = 2 * (24 + 12)  # 2 batches x (vision + text layers)
+    layers, vl = cfg.vision_layers + cfg.text_layers, cfg.vision_layers
+    expected = 2 * layers  # 2 batches x (vision + text layers)
     check(launches == expected, f"K1 launched {launches} times on the main path, expected {expected}")
     check(by_route == {"wgmma": expected, "mma_sync": 0, "f32": 0}, f"K1's routes on the main path: {by_route}")
     check(counts["k2"] == counts["k3"] == counts["k4"] == 0, f"another kernel launched on the embedding path: {counts}")
-    # a batch: 6 epilogues and 2 LayerNorms a block, the patch dense, ln_pre, ln_post and ln_final
-    fused = {"epilogue": 2 * (6 * (24 + 12) + 1), "layernorm": 2 * (2 * (24 + 12) + 3)}
+    # a batch: 6 epilogues and 2 LayerNorms a block, the patch dense, ln_pre, ln_post and ln_final; an EVA02
+    # image block turns q and k in the rotary epilogue, forms its hidden in the gate pass and adds the
+    # attention output's LayerNorm
+    rope, glu = (2 * vl if cfg.rope != "none" else 0), (vl if cfg.vision_mlp == "swiglu" else 0)
+    fused = {"epilogue": 2 * (6 * layers + 1 - rope - glu),
+             "layernorm": 2 * (2 * layers + int(cfg.attn_ln) * vl + int(cfg.ln_pre) + 2),
+             "rope": 2 * rope, "glu": 2 * glu}
     check(all(counts[k] == v for k, v in fused.items()), f"fused launches {counts}, expected {fused}")
     return counts
 
@@ -594,13 +669,14 @@ def phase_parity(mapper, gpu: str):
 
 
 def phase_times(flash, mapper, gpu: str) -> tuple[tuple[float, float, float], tuple[float, float, float],
-                                                  tuple[float, float, float], float]:
+                                                  tuple[float, float, float], tuple[float, float, float], float]:
     """Mapper samples/s on device-resident inputs, and K1 against its plain
-    version at the main path's two attention shapes in bf16 and at SigLIP
+    version at the main path's two attention shapes in bf16, at SigLIP
     So400m/384's image shape (256, 729, 16x72), the wgmma route's wide
-    panels (`time_k1`).  Returns ((K1 ms, plain ms, SDPA ms) at the image
-    tower's (256, 257, 16x64), the same at the text tower's (256, 77, 12x64,
-    causal) and at SigLIP's image shape, the worst max abs error of the
+    panels, and at EVA02-L/14-336's (256, 577, 16x64), the DP-64 kernel
+    (`time_k1`).  Returns ((K1 ms, plain ms, SDPA ms) at the image tower's
+    (256, 257, 16x64), the same at the text tower's (256, 77, 12x64, causal),
+    at SigLIP's and at EVA02's image shapes, the worst max abs error of the
     checks)."""
     import torch
 
@@ -639,7 +715,8 @@ def phase_times(flash, mapper, gpu: str) -> tuple[tuple[float, float, float], tu
     image = time_k1(flash, gen, 257, 16, 64, False, gpu)
     text = time_k1(flash, gen, 77, 12, 64, True, gpu)
     siglip = time_k1(flash, gen, 729, 16, 72, False, gpu)
-    return image[:3], text[:3], siglip[:3], max(image[3], text[3], siglip[3])
+    eva = time_k1(flash, gen, 577, 16, 64, False, gpu)
+    return image[:3], text[:3], siglip[:3], eva[:3], max(image[3], text[3], siglip[3], eva[3])
 
 
 def time_k1(flash, gen, s: int, heads: int, dh: int, causal: bool, gpu: str) -> tuple[float, float, float, float]:
@@ -709,7 +786,7 @@ def phase_sdpa(flash, kernels: dict, gpu: str) -> tuple[dict, float, float, floa
     out = sdpa(q, k, v)
     torch.cuda.synchronize()
     counts = read_counts(kernels)
-    check(counts == {"k1": 0, "k2": 1, "k3": 0, "k4": 0, "epilogue": 0, "layernorm": 0},
+    check(counts == {"k1": 0, "k2": 1, "k3": 0, "k4": 0, "epilogue": 0, "layernorm": 0, "rope": 0, "glu": 0},
           f"sdpa launched {counts}, expected K2 once")
     ref = flash.flash_attention_reference(q.float(), k.float(), v.float())
     err = (out.float() - ref).abs().max().item()
@@ -2419,7 +2496,8 @@ def phase_sharded_flat(index, originals, sample_ids, kernels: dict, gpu: str) ->
 RANK_CODE = ("import sys\nfrom clip_retrieval_tpu_torch import cli\n"
              "from clip_retrieval_tpu_torch.ops import block_fused, flash\ncli.main(sys.argv[1:])\n"
              "print('K1_LAUNCHES', flash.flash_attention_packed.launches, block_fused.dense_epilogue.launches, "
-             "block_fused.layernorm.launches, flush=True)\n")
+             "block_fused.layernorm.launches, block_fused.rope_epilogue.launches, block_fused.glu_layernorm.launches, "
+             "flush=True)\n")
 
 
 def phase_ranks(gpu: str) -> tuple[dict, dict]:
@@ -2491,7 +2569,8 @@ def phase_ranks(gpu: str) -> tuple[dict, dict]:
           f"for the five processes at once (start, model init, decode, inference)")
     def path(a: str, b: str) -> dict:
         return {"k1": k1[a] + k1[b], "k2": 0, "k3": 0, "k4": 0, "epilogue": fused[a][0] + fused[b][0],
-                "layernorm": fused[a][1] + fused[b][1]}
+                "layernorm": fused[a][1] + fused[b][1], "rope": fused[a][2] + fused[b][2],
+                "glu": fused[a][3] + fused[b][3]}
 
     return path("pod0", "pod1"), path("slurm0", "slurm1")
 
@@ -2575,7 +2654,8 @@ def run() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 references stay f32, the f32 int8 product exact
     torch.backends.cudnn.allow_tf32 = False
     kernels = {"k1": flash.flash_attention_packed, "k2": flash.flash_attention, "k3": int8scan.int8_gather_scan,
-               "k4": adc_scan.adc_scan, "epilogue": block_fused.dense_epilogue, "layernorm": block_fused.layernorm}
+               "k4": adc_scan.adc_scan, "epilogue": block_fused.dense_epilogue, "layernorm": block_fused.layernorm,
+               "rope": block_fused.rope_epilogue, "glu": block_fused.glu_layernorm}
 
     phase = "device"
     try:
@@ -2608,15 +2688,21 @@ def run() -> int:
         phase = "block fused vs plain"
         fused = phase_block_fused(block_fused, gpu)
 
+        phase = "EVA02 fused vs plain"
+        eva_fused = phase_eva_fused(block_fused, gpu)
+
         phase = "main path"
         inference_counts = phase_main_path(kernels, gpu)
+
+        phase = "EVA02 main path"
+        eva_counts = phase_main_path(kernels, gpu, EVA_MODEL)
 
         mapper = ClipMapper(enable_image=True, enable_text=True, clip_model=MODEL, batch_size=BATCH, device="cuda")
         phase = "tower parity"
         phase_parity(mapper, gpu)
 
         phase = "times"
-        (k1_ms, plain_ms, sdpa_ms), k1_text, k1_siglip, max_abs_b256 = phase_times(flash, mapper, gpu)
+        (k1_ms, plain_ms, sdpa_ms), k1_text, k1_siglip, k1_eva, max_abs_b256 = phase_times(flash, mapper, gpu)
         del mapper
         torch.cuda.empty_cache()
 
@@ -2735,7 +2821,7 @@ def run() -> int:
         print(f"  phase 'train' wall {time.perf_counter() - t0:.1f} s")
 
         phase = "kernels line"
-        paths = {"inference": inference_counts, "index": index_counts, "serving": served_counts, "sdpa": sdpa_counts,
+        paths = {"inference": inference_counts, "inference_eva": eva_counts, "index": index_counts, "serving": served_counts, "sdpa": sdpa_counts,
                  "combine": combine_counts, "end2end": e2e_counts, "filter": filter_counts,
                  "inference_rn50": rn_counts, "convert": convert_counts, "mclip": mclip_counts, "pod": pod_counts,
                  "slurm_worker": slurm_counts, "sharded_ivf": sharded_counts, "sharded_flat": flat_counts,
@@ -2761,6 +2847,10 @@ def run() -> int:
             rows.append((key, name, "block_fused.cu", "none: XLA fuses these ops on the TPU",
                          fused[key]["max_abs_err"], siglip["ms"], siglip["plain_ms"], siglip["bound_ms"], "bytes",
                          None))
+        for key, name in (("rope", "rope_epilogue"), ("glu", "glu_layernorm")):
+            e = eva_fused[key]
+            rows.append((key, name, "block_fused.cu", "none: the JAX package has no EVA02", e["max_abs_err"],
+                         e["ms"], e["plain_ms"], e["bound_ms"], "bytes", None))
         line = []
         for key, name, src, replaces, err, ms, p_ms, bound, by, lib in rows:
             launches = by_path(key)
@@ -2776,6 +2866,10 @@ def run() -> int:
             "shape": [BATCH, 729, 16, 72], "causal": False, "route": "wgmma", "ms": k1_siglip[0],
             "plain_ms": k1_siglip[1], "library_ms": k1_siglip[2],
             "bound_ms": attention_bound_ms(BATCH, 16, 729, 729, 72, 2)[0]}
+        line[0]["at_eva_image_shape"] = {
+            "shape": [BATCH, 577, 16, 64], "causal": False, "route": "wgmma", "ms": k1_eva[0],
+            "plain_ms": k1_eva[1], "library_ms": k1_eva[2],
+            "bound_ms": attention_bound_ms(BATCH, 16, 577, 577, 64, 2)[0]}
         line[0]["at_rn_text_shapes"] = [
             {"shape": [BATCH, 77, heads, 64], "causal": True, "ms": t[0], "plain_ms": t[1], "library_ms": t[2],
              "max_abs_err": t[3], "bound_ms": attention_bound_ms(BATCH, heads, 77, 77, 64, 2)[0]}

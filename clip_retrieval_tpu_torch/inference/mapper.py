@@ -26,8 +26,9 @@ with "image_tensor" (uint8 HWC) / "text_tokens" → output dict with
   `mapper.image` and `mapper.text` time the queuing of each CLIP tower,
   with the counter `tokens`: the rows the tower runs × its sequence length,
   and the counters `fused` (launches of `ops/block_fused.py`'s kernels
-  while the tower was queued) and `eager` (its dense and LayerNorm calls that
-  took the eager chain instead).
+  while the tower was queued), `eager` (its dense, LayerNorm, rotary and
+  gate calls that took the eager chain instead), and `rope` and `glu`, the
+  launches of the rotary epilogue and of the SwiGLU gate among `fused`.
 """
 
 from __future__ import annotations
@@ -48,11 +49,14 @@ from .staging import STAGED_KEY
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def _fused_counts(before: tuple[int, int]) -> dict[str, int]:
-    """The tower's fused-kernel launches and eager-chain dense/LayerNorm
-    calls since `before` (`block_fused.counts()`)."""
-    fused, eager = block_fused.counts()
-    return {"fused": fused - before[0], "eager": eager - before[1]}
+def _counts() -> tuple[int, int, int, int]:
+    """(fused launches, eager calls, rotary launches, gate launches) so far."""
+    return (*block_fused.counts(), block_fused.rope_epilogue.launches, block_fused.glu_layernorm.launches)
+
+
+def _fused_counts(before: tuple[int, int, int, int]) -> dict[str, int]:
+    """The tower's counters since `before` (`_counts()`)."""
+    return {key: now - then for key, now, then in zip(("fused", "eager", "rope", "glu"), _counts(), before)}
 
 
 class ClipMapper:
@@ -127,7 +131,7 @@ class ClipMapper:
             if self.enable_image:
                 images = batch["image_tensor"]
                 with trace.span("mapper.image") as tower:
-                    before = block_fused.counts()
+                    before = _counts()
                     if staged_n is None:
                         images, n = self.pad_batch(images)
                         images = self.to_device(images)
@@ -141,7 +145,7 @@ class ClipMapper:
             elif self.enable_text:
                 tokens = batch["text_tokens"]
                 with trace.span("mapper.text") as tower:
-                    before = block_fused.counts()
+                    before = _counts()
                     if staged_n is None:
                         tokens, n = self.pad_batch(tokens.astype(np.int32))
                         tokens = self.to_device(tokens)

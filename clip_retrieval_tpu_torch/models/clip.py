@@ -11,6 +11,11 @@ config (`configs.py`) drops the class token and `ln_pre`, adds the patch
 bias, pools the image with `MapHead` and the text at its last position
 through a biased projection, with bidirectional text attention; the JAX
 package has no SigLIP, so only `loaders.convert_siglip_state_dict` fills it.
+An EVA02 config turns q and k of the image tower's patch rows by 2-D rotary
+angles (`rope_table`, a buffer of `VisionTransformer`), normalises the
+attention output before its projection (`Attention.ln`), runs the SwiGLU MLP
+with its hidden's LayerNorm (`SwiGLU`) and adds a bias after the image
+projection; only `loaders.convert_eva_state_dict` fills it.
 
 Casting points follow the JAX package: weights are cast to the compute dtype
 for each matmul, which accumulates in f32; biases and LayerNorm are applied
@@ -18,8 +23,10 @@ in f32, and the result is cast back to the compute dtype.  The projections
 return f32 features, and `l2_normalize` works in f32.  After each product,
 bias, cast, activation and residual add run as one pass, and each LayerNorm
 as one pass (`ops/block_fused.py`: kernels on CUDA tensors, the eager chain
-on CPU tensors); a call that autograd records (an input requires grad, as
-in the train step) takes the eager chain instead.
+on CPU tensors); so do the rotation of q and k after their products, and
+the SwiGLU gate with its LayerNorm after the gate product, each in f32 from
+the accumulator and rounded once.  A call that autograd records (an input
+requires grad, as in the train step) takes the eager chain instead.
 
 The dp×tp train step (`parallel/train.py`) runs these same towers on its
 slices of the weights.  Each `Block` and the text tower hold a communicator,
@@ -33,6 +40,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops import attention as attn_ops
@@ -46,6 +54,9 @@ IMAGE_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], dtype=np.float32)
 IMAGE_STD = np.array([0.26862954, 0.26130258, 0.27577711], dtype=np.float32)
 # the kernel libraries the towers launch on CUDA tensors (`ops/cuda_build.py`)
 KERNEL_LIBRARIES = (flash.LIBRARY, block_fused.LIBRARY)
+# the SwiGLU hidden is padded with zero columns to a multiple of this, so that
+# the gate product's rows and the hidden's stay 16-byte aligned
+GLU_ALIGN = 8
 
 
 def _param(*shape, device=None) -> nn.Parameter:
@@ -106,6 +117,16 @@ def _dense(
     return block_fused.dense_epilogue(y, b, act=act, residual=residual, dtype=x.dtype)
 
 
+def _rope_dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, table: torch.Tensor, prefix: int) -> torch.Tensor:
+    """x @ w + b with each head's pairs of the rows from `prefix` on turned by
+    `table`'s angles (`block_fused.rope_epilogue`), in x's dtype."""
+    acc = matmul_f32(x, w)
+    if _differentiable(x, w, b):
+        block_fused.record_eager()
+        return block_fused.rope_reference(acc, b, table, prefix, x.dtype)
+    return block_fused.rope_epilogue(acc, b, table, prefix=prefix, dtype=x.dtype)
+
+
 class _Local:
     """The towers' tensor-parallel hooks on a rank that holds every weight:
     each is the identity (`parallel/train.py::_Comm` has the tp versions)."""
@@ -127,12 +148,16 @@ LOCAL = _Local()
 
 
 class Attention(nn.Module):
-    def __init__(self, width: int, device=None):
+    """q/k/v/out projections; `ln` (EVA02) normalises the attention output
+    before `wo`."""
+
+    def __init__(self, width: int, device=None, ln: bool = False):
         super().__init__()
         for name in ("wq", "wk", "wv", "wo"):
             setattr(self, name, _param(width, width, device=device))
         for name in ("bq", "bk", "bv", "bo"):
             setattr(self, name, _param(width, device=device))
+        self.ln = LayerNorm(width, device) if ln else None
 
 
 class Mlp(nn.Module):
@@ -144,45 +169,112 @@ class Mlp(nn.Module):
         self.b_out = _param(width, device=device)
 
 
+class SwiGLU(nn.Module):
+    """EVA02's MLP: LN(silu(x·Wg + bg) ⊙ (x·Wx + bx))·W_out + b_out, the
+    LayerNorm over the hidden's `mlp_dim` columns.
+
+    The gate and the x product run as one product over [Wg | Wx], each
+    padded with zero columns to `GLU_ALIGN`; `block_fused.glu_layernorm`
+    forms the hidden from its f32 accumulator and writes zeros in the pad
+    columns, which meet zero rows of the padded W_out, so every sum is the
+    unpadded one."""
+
+    def __init__(self, width: int, mlp_dim: int, device=None):
+        super().__init__()
+        self.w_gate = _param(width, mlp_dim, device=device)
+        self.b_gate = _param(mlp_dim, device=device)
+        self.w_in = _param(width, mlp_dim, device=device)
+        self.b_in = _param(mlp_dim, device=device)
+        self.ln = LayerNorm(mlp_dim, device)
+        self.w_out = _param(mlp_dim, width, device=device)
+        self.b_out = _param(width, device=device)
+
+    def hidden(self, y: torch.Tensor, eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+        """(the normalised hidden, zero-padded, in y's dtype; W_out padded to match)."""
+        h = self.w_in.shape[1]
+        pad = -h % GLU_ALIGN
+        cols = lambda t: F.pad(t.to(y.dtype), (0, pad))  # noqa: E731
+        acc = matmul_f32(y, torch.cat((cols(self.w_gate), cols(self.w_in)), dim=-1))
+        bias = torch.cat((F.pad(self.b_gate, (0, pad)), F.pad(self.b_in, (0, pad))))
+        w_out = F.pad(self.w_out.to(y.dtype), (0, 0, 0, pad))
+        ln = self.ln
+        if _differentiable(y, self.w_gate, self.w_in, bias, ln.scale, ln.bias):
+            block_fused.record_eager()
+            return block_fused.glu_layernorm_reference(acc, bias, ln.scale, ln.bias, eps, y.dtype), w_out
+        return block_fused.glu_layernorm(acc, bias, ln.scale, ln.bias, eps, dtype=y.dtype), w_out
+
+
 class Block(nn.Module):
     """Pre-LN transformer block; attention stays in the packed (B, S, W)
     layout that the projections emit.  `comm` holds the tensor-parallel
-    hooks (`LOCAL` unless the train step attaches its own)."""
+    hooks (`LOCAL` unless the train step attaches its own).  An EVA02 image
+    block turns q and k by the tower's rotary table, normalises the
+    attention output (`attn_ln`) and runs `SwiGLU` (`swiglu`)."""
 
-    def __init__(self, width: int, mlp_dim: int, heads: int, act: str, eps: float, causal: bool, device=None):
+    def __init__(self, width: int, mlp_dim: int, heads: int, act: str, eps: float, causal: bool, device=None, *,
+                 attn_ln: bool = False, swiglu: bool = False):
         super().__init__()
         self.heads, self.act, self.eps, self.causal = heads, act, eps, causal
         self.comm = LOCAL
         self.ln_1 = LayerNorm(width, device)
-        self.attn = Attention(width, device)
+        self.attn = Attention(width, device, ln=attn_ln)
         self.ln_2 = LayerNorm(width, device)
-        self.mlp = Mlp(width, mlp_dim, device)
+        self.mlp = SwiGLU(width, mlp_dim, device) if swiglu else Mlp(width, mlp_dim, device)
 
-    def forward(self, x: torch.Tensor, attn_impl: str = "auto") -> torch.Tensor:
+    def forward(self, x: torch.Tensor, attn_impl: str = "auto", rope: tuple[torch.Tensor, int] | None = None
+                ) -> torch.Tensor:
+        """x (B, S, W) → (B, S, W); `rope`: (table, prefix) turns q and k of
+        the rows from `prefix` on (`rope_table`)."""
         c = self.comm
         y = c.copy(self.ln_1(x, self.eps))
         a = self.attn
-        q = _dense(y, a.wq, a.bq)
-        k = _dense(y, a.wk, a.bk)
+        if rope is None:
+            q = _dense(y, a.wq, a.bq)
+            k = _dense(y, a.wk, a.bk)
+        else:
+            q = _rope_dense(y, a.wq, a.bq, *rope)
+            k = _rope_dense(y, a.wk, a.bk, *rope)
         v = _dense(y, a.wv, a.bv)
         heads = self.heads * q.shape[-1] // x.shape[-1]  # a tp slice's q holds heads/tp whole heads
         o = attn_ops.sdpa_packed(q, k, v, heads, causal=self.causal, impl=attn_impl)
+        if a.ln is not None:
+            o = a.ln(o, self.eps)
         x = _dense(o, a.wo, a.bo, residual=x, reduce=c.reduce)
         y = c.copy(self.ln_2(x, self.eps))
         m = self.mlp
-        y = _dense(y, m.w_in, m.b_in, act=self.act)
-        return _dense(y, m.w_out, m.b_out, residual=x, reduce=c.reduce)
+        if isinstance(m, SwiGLU):
+            y, w_out = m.hidden(y, self.eps)
+        else:
+            y, w_out = _dense(y, m.w_in, m.b_in, act=self.act), m.w_out
+        return _dense(y, w_out, m.b_out, residual=x, reduce=c.reduce)
 
 
 def _mlp_dim(width: int, mlp_ratio: float) -> int:
     return int(round(width * mlp_ratio))
 
 
-def _blocks(n: int, width: int, mlp_ratio: float, heads: int, cfg: CLIPConfig, causal: bool, device):
+def _blocks(n: int, width: int, mlp_ratio: float, heads: int, cfg: CLIPConfig, eps: float, causal: bool, device,
+            **kinds):
     mlp_dim = _mlp_dim(width, mlp_ratio)
-    return nn.ModuleList(
-        Block(width, mlp_dim, heads, cfg.act, cfg.layernorm_eps, causal, device) for _ in range(n)
-    )
+    return nn.ModuleList(Block(width, mlp_dim, heads, cfg.act, eps, causal, device, **kinds) for _ in range(n))
+
+
+def rope_table(grid: int, ref_grid: int, head_dim: int) -> torch.Tensor:
+    """EVA02's 2-D rotary angles as (2, grid², head_dim/2) f32, cos then sin,
+    patches row-major: with f_j = 10000^(−j/n), n = head_dim/4, and the patch
+    at row r and column c placed at t_r = r·ref_grid/grid, t_c =
+    c·ref_grid/grid, pair i turns by t_r·f_i for i < n and by t_c·f_{i−n}
+    for the others (timm's `RotaryEmbeddingCat`, `in_pixels=False`).
+    Computed in float64, rounded once."""
+    if head_dim % 4 or ref_grid <= 0:
+        raise ValueError(f"2-D rotary angles need a head dim divisible by 4 and a reference grid, got "
+                         f"{head_dim} and {ref_grid}")
+    n = head_dim // 4
+    f = 10000.0 ** (-np.arange(n) / n)
+    t = np.arange(grid) * ref_grid / grid
+    rows, cols = np.meshgrid(t, t, indexing="ij")
+    angles = np.concatenate([rows.reshape(-1, 1) * f, cols.reshape(-1, 1) * f], axis=1)
+    return torch.from_numpy(np.stack([np.cos(angles), np.sin(angles)]).astype(np.float32))
 
 
 class MapHead(nn.Module):
@@ -229,7 +321,10 @@ class VisionTransformer(nn.Module):
         self.class_emb = _param(w, device=device) if cfg.class_token else None
         self.pos_emb = _param(cfg.vision_seq_len, w, device=device)
         self.ln_pre = LayerNorm(w, device) if cfg.ln_pre else None
-        self.blocks = _blocks(cfg.vision_layers, w, cfg.vision_mlp_ratio, cfg.vision_heads, cfg, False, device)
+        if cfg.vision_mlp not in ("act", "swiglu"):
+            raise ValueError(f"unknown vision_mlp {cfg.vision_mlp!r}")
+        self.blocks = _blocks(cfg.vision_layers, w, cfg.vision_mlp_ratio, cfg.vision_heads, cfg, cfg.layernorm_eps,
+                              False, device, attn_ln=cfg.attn_ln, swiglu=cfg.vision_mlp == "swiglu")
         self.ln_post = LayerNorm(w, device)
         if cfg.pool == "map":
             self.head, self.proj = MapHead(cfg, device), None
@@ -237,6 +332,14 @@ class VisionTransformer(nn.Module):
             self.head, self.proj = None, _param(w, cfg.embed_dim, device=device)
         else:
             raise ValueError(f"unknown pool {cfg.pool!r}")
+        self.proj_bias = _param(cfg.embed_dim, device=device) if cfg.vision_proj_bias else None
+        if cfg.rope == "2d":
+            table = rope_table(cfg.grid_size, cfg.rope_grid, cfg.vision_head_dim)
+            self.register_buffer("rope", table.to(device), persistent=False)
+        elif cfg.rope == "none":
+            self.rope = None
+        else:
+            raise ValueError(f"unknown rope {cfg.rope!r}")
 
     def embed_patches(self, x: torch.Tensor) -> torch.Tensor:
         """The patch convolution, stride P and "valid" (the pixels past the
@@ -261,13 +364,15 @@ class VisionTransformer(nn.Module):
         x = x + self.pos_emb.to(x.dtype)
         if self.ln_pre is not None:
             x = self.ln_pre(x, cfg.layernorm_eps)
+        rope = None if self.rope is None else (self.rope, int(cfg.class_token))
         for blk in self.blocks:
-            x = blk(x, attn_impl)
+            x = blk(x, attn_impl, rope)
         if self.head is not None:
             with trace.span("visual.head"):
                 return self.head(self.ln_post(x, cfg.layernorm_eps))
         x = self.ln_post(x[:, 0], cfg.layernorm_eps)
-        return matmul_f32(x, self.proj)
+        y = matmul_f32(x, self.proj)
+        return y if self.proj_bias is None else y + self.proj_bias.float()
 
 
 class TextTransformer(nn.Module):
@@ -278,7 +383,8 @@ class TextTransformer(nn.Module):
         tw = cfg.text_width
         self.token_emb = _param(cfg.vocab_size, tw, device=device)
         self.pos_emb = _param(cfg.context_length, tw, device=device)
-        self.blocks = _blocks(cfg.text_layers, tw, cfg.text_mlp_ratio, cfg.text_heads, cfg, cfg.text_causal, device)
+        self.blocks = _blocks(cfg.text_layers, tw, cfg.text_mlp_ratio, cfg.text_heads, cfg, cfg.text_eps,
+                              cfg.text_causal, device)
         self.ln_final = LayerNorm(tw, device)
         self.proj = _param(tw, cfg.embed_dim, device=device)
         self.proj_bias = _param(cfg.embed_dim, device=device) if cfg.text_proj_bias else None
@@ -293,7 +399,7 @@ class TextTransformer(nn.Module):
         x = x + self.pos_emb[: x.shape[1]].to(compute_dtype)
         for blk in self.blocks:
             x = blk(x, attn_impl)
-        x = self.ln_final(x, self.cfg.layernorm_eps)
+        x = self.ln_final(x, self.cfg.text_eps)
         if self.cfg.text_pool == "last":
             x = x[:, -1]
         else:
@@ -330,7 +436,8 @@ def init_clip(cfg: CLIPConfig, seed: int = 0, device: str | torch.device = "cuda
     projection weights; (2·width)^-½ for MLP-out; 0.02 and 0.01 for the
     text token and position embeddings; LayerNorm 1/0 and zero biases.  A
     ResNet image tower takes `resnet.init_resnet_visual`'s scales; a
-    pooling head's probe and products take the blocks' scales.
+    pooling head's probe and products take the blocks' scales, a SwiGLU
+    gate the MLP-in scale.
     Random numbers come from a `torch.Generator` on `device` seeded with
     `seed`, so they differ from the JAX package's for the same seed.  The
     default device is CUDA; without a GPU it raises unless given "cpu"."""
@@ -363,8 +470,10 @@ def init_clip(cfg: CLIPConfig, seed: int = 0, device: str | torch.device = "cuda
         fill(t.proj, tw ** -0.5)
         for blocks, width in towers + [(t.blocks, tw)]:
             for blk in blocks:
-                for p in (blk.attn.wq, blk.attn.wk, blk.attn.wv, blk.attn.wo, blk.mlp.w_in):
-                    fill(p, width ** -0.5)
+                for p in (blk.attn.wq, blk.attn.wk, blk.attn.wv, blk.attn.wo, blk.mlp.w_in,
+                          getattr(blk.mlp, "w_gate", None)):
+                    if p is not None:
+                        fill(p, width ** -0.5)
                 fill(blk.mlp.w_out, (2 * width) ** -0.5)
     return model
 

@@ -6,8 +6,10 @@ architectures natively.  Configs cover the model families the reference's docs
 exercise (ViT-B/32, B/16, L/14, H/14, g/14 + the mCLIP text variants handled
 separately in loaders) plus the openai ResNet family (RN50, RN101,
 RN50x{4,16,64}) the reference reaches through the same `clip_model` string,
-and SigLIP So400m/14 at 384 px (open_clip's `ViT-SO400M-14-SigLIP-384`),
-whose towers depart from CLIP's in the fields marked "SigLIP" below.
+SigLIP So400m/14 at 384 px (open_clip's `ViT-SO400M-14-SigLIP-384`),
+whose towers depart from CLIP's in the fields marked "SigLIP" below, and
+EVA02-CLIP-L/14 at 336 px (open_clip's `EVA02-L-14-336`), whose image tower
+departs in the fields marked "EVA02".
 """
 
 from __future__ import annotations
@@ -48,6 +50,9 @@ class CLIPConfig:
     # SigLIP uses gelu_tanh (transformers' gelu_pytorch_tanh)
     act: str = "quick_gelu"
     layernorm_eps: float = 1e-5
+    # the text tower's LayerNorm eps where it differs from the image tower's
+    # (None: layernorm_eps in both)
+    text_layernorm_eps: Optional[float] = None
 
     # SigLIP: the image tower has no class token and no ln_pre, a patch
     # convolution with bias, and pools with the attention-pooling head
@@ -63,6 +68,20 @@ class CLIPConfig:
     text_causal: bool = True
     text_pool: str = "eot"
     text_proj_bias: bool = False
+
+    # EVA02: the image tower rotates q and k of the patch rows ("2d": the
+    # first half of each head's pairs by the patch's row, the second half by
+    # its column, positions scaled to a rope_grid × rope_grid reference
+    # grid; the class row is not turned), its MLP is SwiGLU with a LayerNorm
+    # on its hidden (LN(silu(x·Wg + bg) ⊙ (x·Wx + bx)), hidden =
+    # vision_width·vision_mlp_ratio, in place of act(x·W + b)), a LayerNorm
+    # sits on the attention output before its projection (attn_ln), and the
+    # image projection carries a bias
+    rope: str = "none"
+    rope_grid: int = 0
+    vision_mlp: str = "act"
+    attn_ln: bool = False
+    vision_proj_bias: bool = False
 
     # preprocessing: CLIP's mean and std, the shorter side resized then
     # centre-cropped ("crop"); SigLIP normalizes with 0.5 and resizes both
@@ -97,6 +116,10 @@ class CLIPConfig:
     @property
     def vision_seq_len(self) -> int:
         return self.num_patches + int(self.class_token)
+
+    @property
+    def text_eps(self) -> float:
+        return self.layernorm_eps if self.text_layernorm_eps is None else self.text_layernorm_eps
 
     @property
     def vision_head_dim(self) -> int:
@@ -318,6 +341,61 @@ TEST_TINY_SIGLIP = _register(
         text_layers=2,
         text_heads=2,
         text_mlp_ratio=2.5,
+    )
+)
+
+# EVA02-CLIP-L/14 at 336 px (open_clip `EVA02-L-14-336`; timm
+# `eva02_large_patch14_clip_336`; arXiv:2303.15389, arXiv:2303.11331): 24
+# image layers of width 1024, 16 heads of 64, 577 tokens, 2-D rotary
+# positions at a 16 × 16 reference grid, a SwiGLU MLP of hidden 2730
+# (int(1024 · 8/3)) with its LayerNorm, the attention output's LayerNorm,
+# eps 1e-6, no ln_pre, a biased 1024 → 768 head; open_clip's 12 × 768 causal
+# text tower with erf GELU and eps 1e-5
+EVA02_L14_336 = _register(
+    CLIPConfig(
+        name="EVA02-L-14-336",
+        embed_dim=768,
+        image_size=336,
+        patch_size=14,
+        vision_width=1024,
+        vision_layers=24,
+        vision_heads=16,
+        vision_mlp_ratio=2730 / 1024,
+        text_width=768,
+        text_layers=12,
+        text_heads=12,
+        act="gelu",
+        layernorm_eps=1e-6,
+        text_layernorm_eps=1e-5,
+        ln_pre=False,
+        patch_bias=True,
+        rope="2d",
+        rope_grid=16,
+        vision_mlp="swiglu",
+        attn_ln=True,
+        vision_proj_bias=True,
+    )
+)
+
+# Tiny EVA02 for tests: 40 px at patch 8 (a 5 × 5 grid rotated as on a 3 × 3
+# reference grid), head dims 12 (image) and 8 (text), a SwiGLU hidden of 42
+# (not a multiple of 8)
+TEST_TINY_EVA = _register(
+    EVA02_L14_336.replace(
+        name="test-tiny-eva",
+        embed_dim=24,
+        image_size=40,
+        patch_size=8,
+        vision_width=48,
+        vision_layers=2,
+        vision_heads=4,
+        vision_mlp_ratio=42 / 48,
+        rope_grid=3,
+        vocab_size=520,
+        context_length=16,
+        text_width=32,
+        text_layers=2,
+        text_heads=4,
     )
 )
 

@@ -10,6 +10,11 @@ for ViT towers:
   `convert_siglip_state_dict`), which no JAX tree holds: their tree carries
   the SigLIP entries (`patch_embed.bias`, `head`, the text `proj_bias`)
   and leaves out `class_emb`, `ln_pre` and the image `proj`
+- open_clip EVA02 state dicts (timm's `Eva` trunk under `visual.trunk.`,
+  open_clip's text tower; `convert_eva_state_dict`), which no JAX tree
+  holds either: their tree carries `patch_embed.bias`, the image
+  `proj_bias`, each block's `attn.ln` and the SwiGLU's `mlp.w_gate`,
+  `mlp.b_gate` and `mlp.ln`, and leaves out `ln_pre`
 
 Every source is first turned into the JAX package's nested tree of numpy
 arrays (blocks stacked on a leading layer axis, x@W kernels), and
@@ -66,8 +71,14 @@ def _copy_ln(ln, tree: Mapping[str, Any], name: str):
 def _copy_attn_mlp(blk, tree: Mapping[str, Any], prefix: str, pick):
     for name in ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "bo"):
         _copy(getattr(blk.attn, name), pick(tree["attn"][name]), f"{prefix}.attn.{name}")
-    for name in ("w_in", "b_in", "w_out", "b_out"):
-        _copy(getattr(blk.mlp, name), pick(tree["mlp"][name]), f"{prefix}.mlp.{name}")
+    for name in ("w_gate", "b_gate", "w_in", "b_in", "w_out", "b_out"):
+        if hasattr(blk.mlp, name):
+            _copy(getattr(blk.mlp, name), pick(tree["mlp"][name]), f"{prefix}.mlp.{name}")
+    for sub in ("attn", "mlp"):  # EVA02's inner LayerNorms
+        ln = getattr(getattr(blk, sub), "ln", None)
+        if ln is not None:
+            for leaf in ("scale", "bias"):
+                _copy(getattr(ln, leaf), pick(tree[sub]["ln"][leaf]), f"{prefix}.{sub}.ln.{leaf}")
 
 
 def _copy_blocks(blocks, tree: Mapping[str, Any], prefix: str):
@@ -127,7 +138,7 @@ def from_jax_params(tree: Mapping[str, Any], cfg: CLIPConfig, device: str | torc
             _copy(v.patch_embed.kernel, vt["patch_embed"]["kernel"], "visual.patch_embed.kernel")
             if v.patch_embed.bias is not None:
                 _copy(v.patch_embed.bias, vt["patch_embed"]["bias"], "visual.patch_embed.bias")
-            for name in ("class_emb", "pos_emb", "proj"):
+            for name in ("class_emb", "pos_emb", "proj", "proj_bias"):
                 if getattr(v, name) is not None:
                     _copy(getattr(v, name), vt[name], f"visual.{name}")
             for ln in ("ln_pre", "ln_post"):
@@ -346,17 +357,22 @@ def convert_openai_resnet_visual(sd: Mapping[str, Any], cfg: CLIPConfig) -> dict
     return {"stem": stem, "stages": stages, "attnpool": attnpool}
 
 
-def openai_tree(sd: Mapping[str, Any], cfg: CLIPConfig) -> dict:
-    """openai/open_clip state dict (ViT or ModifiedResNet image tower) → the
-    JAX package's param tree."""
+def _openai_text(sd: Mapping[str, Any], cfg: CLIPConfig) -> dict:
     g = lambda k: _np(sd[k])
-    text = {
+    return {
         "token_emb": g("token_embedding.weight"),
         "pos_emb": g("positional_embedding"),
         "blocks": _openai_tower(sd, "transformer", cfg.text_layers, cfg.text_width),
         "ln_final": {"scale": g("ln_final.weight"), "bias": g("ln_final.bias")},
         "proj": g("text_projection"),
     }
+
+
+def openai_tree(sd: Mapping[str, Any], cfg: CLIPConfig) -> dict:
+    """openai/open_clip state dict (ViT or ModifiedResNet image tower) → the
+    JAX package's param tree."""
+    g = lambda k: _np(sd[k])
+    text = _openai_text(sd, cfg)
     if "visual.layer1.0.conv1.weight" in sd:
         visual = convert_openai_resnet_visual(sd, cfg)
         return {"visual": visual, "text": text, "logit_scale": g("logit_scale").reshape(())}
@@ -380,6 +396,60 @@ def convert_openai_state_dict(
 
 
 # ---------------------------------------------------------------------------
+# open_clip EVA02 (timm `Eva` trunk)
+# ---------------------------------------------------------------------------
+
+_EVA_TRUNK = "visual.trunk."
+
+
+def _eva_tower(sd, prefix: str, n_layers: int) -> dict:
+    L = prefix + "blocks.{i}."
+    stack = lambda name: _stack(sd, L + name, n_layers)  # noqa: E731
+    lin = lambda name: stack(name + ".weight").transpose(0, 2, 1)  # noqa: E731  (L, out, in) → (L, in, out)
+    ln = lambda name: {"scale": stack(name + ".weight"), "bias": stack(name + ".bias")}  # noqa: E731
+    bq = stack("attn.q_proj.bias")
+    return {
+        "ln_1": ln("norm1"),
+        "attn": {"wq": lin("attn.q_proj"), "wk": lin("attn.k_proj"), "wv": lin("attn.v_proj"),
+                 "wo": lin("attn.proj"), "bq": bq, "bk": np.zeros_like(bq),  # k's product has no bias
+                 "bv": stack("attn.v_proj.bias"), "bo": stack("attn.proj.bias"), "ln": ln("attn.norm")},
+        "ln_2": ln("norm2"),
+        "mlp": {"w_gate": lin("mlp.fc1_g"), "b_gate": stack("mlp.fc1_g.bias"), "w_in": lin("mlp.fc1_x"),
+                "b_in": stack("mlp.fc1_x.bias"), "ln": ln("mlp.norm"), "w_out": lin("mlp.fc2"),
+                "b_out": stack("mlp.fc2.bias")},
+    }
+
+
+def eva_tree(sd: Mapping[str, Any], cfg: CLIPConfig) -> dict:
+    """open_clip EVA02 state dict → a param tree in the JAX package's layout
+    with EVA02's entries (Linear weights (out, in) transposed to x@W, the
+    patch convolution to (P, P, 3, W), zeros for k's absent bias)."""
+    g = lambda k: _np(sd[k])
+    ln = lambda k: {"scale": g(k + ".weight"), "bias": g(k + ".bias")}  # noqa: E731
+    t = _EVA_TRUNK
+    visual = {
+        "patch_embed": {"kernel": g(t + "patch_embed.proj.weight").transpose(2, 3, 1, 0),
+                        "bias": g(t + "patch_embed.proj.bias")},
+        "class_emb": g(t + "cls_token").reshape(-1),
+        "pos_emb": g(t + "pos_embed").reshape(-1, cfg.vision_width),
+        "blocks": _eva_tower(sd, t, cfg.vision_layers),
+        "ln_post": ln(t + "norm"),
+        "proj": g(t + "head.weight").T,
+        "proj_bias": g(t + "head.bias"),
+    }
+    return {"visual": visual, "text": _openai_text(sd, cfg), "logit_scale": g("logit_scale").reshape(())}
+
+
+def convert_eva_state_dict(sd: Mapping[str, Any], cfg: CLIPConfig, device: str | torch.device = "cuda") -> CLIP:
+    """open_clip EVA02 state dict (`visual.trunk.*` plus the text tower's
+    keys) → a `CLIP` module of an EVA02 config on `device`."""
+    device = resolve_device(device)
+    if cfg.vision_mlp != "swiglu" or cfg.rope != "2d":
+        raise ValueError(f"{cfg.name} is not an EVA02 config (vision_mlp {cfg.vision_mlp!r}, rope {cfg.rope!r})")
+    return from_jax_params(eva_tree(sd, cfg), cfg, device)
+
+
+# ---------------------------------------------------------------------------
 # dispatch
 # ---------------------------------------------------------------------------
 
@@ -387,6 +457,8 @@ def convert_openai_state_dict(
 def detect_format(sd: Mapping[str, Any]) -> str:
     if "vision_model.head.probe" in sd:
         return "hf_siglip"
+    if _EVA_TRUNK + "blocks.0.mlp.fc1_g.weight" in sd:
+        return "open_clip_eva"
     if any(k.startswith("vision_model.") for k in sd):
         return "hf"
     if any(k.startswith("visual.") for k in sd):
@@ -399,6 +471,8 @@ def convert_state_dict(sd: Mapping[str, Any], cfg: CLIPConfig, device: str | tor
     fmt = detect_format(sd)
     if fmt == "hf_siglip":
         return convert_siglip_state_dict(sd, cfg, device)
+    if fmt == "open_clip_eva":
+        return convert_eva_state_dict(sd, cfg, device)
     if fmt == "hf":
         return convert_hf_state_dict(sd, cfg, device)
     return convert_openai_state_dict(sd, cfg, device)

@@ -1,5 +1,7 @@
-"""A transformer block's elementwise work as two hand-written kernels: the
-epilogue after each dense, and a one-pass LayerNorm.
+"""A transformer block's elementwise work as hand-written kernels: the
+epilogue after each dense, a one-pass LayerNorm, and for a rotary SwiGLU
+tower (EVA02) the q/k products' rotary epilogue and the SwiGLU gate with its
+LayerNorm.
 
 Both are entries of `csrc/block_fused.cu` (built with nvcc at first use).
 They replace no Pallas kernel of the JAX package: on the TPU, XLA fuses the
@@ -12,8 +14,9 @@ registers, rounding where the eager chain rounds (the source's note).
 On CUDA tensors a wrapper launches its kernel or raises; on CPU tensors it
 runs its plain version, which is the eager chain itself (`cuda_build.route`).
 Each wrapper counts its launches (`cuda_build.Kernel.launch`); `record_eager`
-counts the dense and LayerNorm calls of `models/clip.py` that took the eager
-chain because an input requires grad (the kernels have no backward).
+counts the dense, LayerNorm, rotary and gate calls of `models/clip.py` that
+took the eager chain because an input requires grad (the kernels have no
+backward).
 """
 
 from __future__ import annotations
@@ -29,9 +32,12 @@ _LOCK = threading.Lock()
 LIBRARY = "block_fused"
 _EPILOGUE = cuda_build.Kernel(LIBRARY, "crt_dense_epilogue")
 _LAYERNORM = cuda_build.Kernel(LIBRARY, "crt_layernorm")
+_ROPE = cuda_build.Kernel(LIBRARY, "crt_rope")
+_GLU = cuda_build.Kernel(LIBRARY, "crt_glu_layernorm")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 ACT_CODE = {None: 0, "quick_gelu": 1, "gelu": 2, "gelu_tanh": 3}
 MAX_LN_WIDTH = 2048  # the row in registers: 8 f32 a lane per 256 of width, 64 at most
+MAX_GLU_WIDTH = 4096  # the gate's padded hidden in a block's registers, 32 f32 a thread at most
 
 
 def activation(x: torch.Tensor, kind: str) -> torch.Tensor:
@@ -64,8 +70,41 @@ def layernorm_reference(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor
     return y.to(x.dtype)
 
 
+def rope_reference(
+    acc: torch.Tensor, bias: torch.Tensor | None, table: torch.Tensor, prefix: int, dtype: torch.dtype
+) -> torch.Tensor:
+    """The plain rotary epilogue: the f32 accumulator (B, S, W) plus the f32
+    bias; in every head of dh = 2·table.shape[-1] columns of the rows from
+    `prefix` on, pair (2i, 2i+1) = (a, b) → (a·cos − b·sin, b·cos + a·sin)
+    with cos = table[0, s − prefix, i] and sin = table[1, s − prefix, i];
+    the rest as it is; cast to `dtype` once."""
+    y = acc if bias is None else acc + bias.float()
+    b, s, w = y.shape
+    half = table.shape[-1]
+    pairs = y[:, prefix:].reshape(b, s - prefix, w // (2 * half), half, 2)
+    a, o = pairs[..., 0], pairs[..., 1]
+    cos, sin = table[0, :, None, :], table[1, :, None, :]
+    turned = torch.stack((a * cos - o * sin, o * cos + a * sin), dim=-1).reshape(b, s - prefix, w)
+    return torch.cat((y[:, :prefix], turned), dim=1).to(dtype)
+
+
+def glu_layernorm_reference(
+    acc: torch.Tensor, bias: torch.Tensor | None, scale: torch.Tensor, ln_bias: torch.Tensor, eps: float,
+    dtype: torch.dtype,
+) -> torch.Tensor:
+    """The plain SwiGLU middle: acc (..., 2·hp) f32 plus the f32 bias, g the
+    first h = len(scale) columns and x the h from hp on; silu(g)·x
+    normalised over its h columns with f32 scale and bias, zeros in columns
+    [h, hp), cast to `dtype` once."""
+    y = acc if bias is None else acc + bias.float()
+    hp, h = y.shape[-1] // 2, scale.shape[0]
+    hidden = F.silu(y[..., :h]) * y[..., hp : hp + h]
+    out = F.layer_norm(hidden, (h,), scale.float(), ln_bias.float(), eps)
+    return F.pad(out, (0, hp - h)).to(dtype)
+
+
 def record_eager() -> None:
-    """Count one dense or LayerNorm call that took the eager chain."""
+    """Count one dense, LayerNorm, rotary or gate call that took the eager chain."""
     with _LOCK:
         record_eager.calls += 1
 
@@ -74,8 +113,9 @@ record_eager.calls = 0
 
 
 def counts() -> tuple[int, int]:
-    """(kernel launches of both wrappers, eager-chain calls) so far."""
-    return dense_epilogue.launches + layernorm.launches, record_eager.calls
+    """(kernel launches of every wrapper, eager-chain calls) so far."""
+    launches = dense_epilogue.launches + layernorm.launches + rope_epilogue.launches + glu_layernorm.launches
+    return launches, record_eager.calls
 
 
 def dense_epilogue(
@@ -152,3 +192,81 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: flo
 
 
 layernorm.launches = 0  # kernel launches, counted only where the kernel launches
+
+
+def rope_epilogue(
+    acc: torch.Tensor, bias: torch.Tensor | None, table: torch.Tensor, *, prefix: int, dtype: torch.dtype
+) -> torch.Tensor:
+    """`rope_reference` in one pass: the f32 accumulator (B, S, W) of a q or
+    k product plus the f32 bias (W), each head's pairs of the rows from
+    `prefix` on turned by the angles of `table` (2, S − prefix, dh/2), f32
+    cos then sin, written in `dtype`.
+
+    CUDA tensors: acc f32 contiguous, bias f32 (W,) or None, table f32
+    contiguous, W a multiple of dh, dtype bf16 or f32; anything else raises.
+    CPU tensors: the plain version."""
+    if cuda_build.route("rope_epilogue", acc, bias, table) == "cpu":
+        return rope_reference(acc, bias, table, prefix, dtype)
+    if acc.dtype != torch.float32 or not acc.is_contiguous() or acc.dim() != 3:
+        raise ValueError(f"acc must be a contiguous float32 (B, S, W) tensor, got {acc.dtype} {tuple(acc.shape)}")
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"rope_epilogue writes bfloat16 or float32, not {dtype}")
+    b, s, w = acc.shape
+    if table.dtype != torch.float32 or not table.is_contiguous() or table.dim() != 3 or table.shape[:2] != (
+            2, s - prefix) or not 0 <= prefix < s:
+        raise ValueError(f"table must be a contiguous float32 (2, {s - prefix}, dh/2) tensor for S={s} and "
+                         f"prefix={prefix}, got {table.dtype} {tuple(table.shape)}")
+    dh = 2 * table.shape[2]
+    if w % dh:
+        raise ValueError(f"width {w} is not a multiple of the head dim {dh}")
+    if bias is not None and (bias.dtype != torch.float32 or bias.shape != (w,) or not bias.is_contiguous()):
+        raise ValueError(f"bias must be a contiguous float32 ({w},) tensor, got {bias.dtype} {tuple(bias.shape)}")
+    out = torch.empty(acc.shape, dtype=dtype, device=acc.device)
+    if out.numel() == 0:
+        return out
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    _ROPE.launch(rope_epilogue, acc.device, lambda: f"acc {tuple(acc.shape)} dh={dh}", acc.data_ptr(), ptr(bias),
+                 table.data_ptr(), out.data_ptr(), b * s, s, prefix, w, dh, _DTYPE_CODE[dtype])
+    return out
+
+
+rope_epilogue.launches = 0  # kernel launches, counted only where the kernel launches
+
+
+def glu_layernorm(
+    acc: torch.Tensor, bias: torch.Tensor | None, scale: torch.Tensor, ln_bias: torch.Tensor, eps: float, *,
+    dtype: torch.dtype,
+) -> torch.Tensor:
+    """`glu_layernorm_reference` in one pass: from the gate product's f32
+    accumulator (..., 2·hp) and bias (2·hp), silu(g)·x over the h =
+    len(scale) hidden columns, its LayerNorm, written (..., hp) in `dtype`
+    with zeros in the pad columns.
+
+    CUDA tensors: acc f32 contiguous, h ≤ hp ≤ 4096, bias f32 (2·hp,) or
+    None, scale and ln_bias f32 contiguous (h,), dtype bf16 or f32; anything
+    else raises.  CPU tensors: the plain version."""
+    if cuda_build.route("glu_layernorm", acc, bias, scale, ln_bias) == "cpu":
+        return glu_layernorm_reference(acc, bias, scale, ln_bias, eps, dtype)
+    if acc.dtype != torch.float32 or not acc.is_contiguous() or acc.dim() == 0 or acc.shape[-1] % 2:
+        raise ValueError(f"acc must be a contiguous float32 (..., 2·hp) tensor, got {acc.dtype} {tuple(acc.shape)}")
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"glu_layernorm writes bfloat16 or float32, not {dtype}")
+    hp, h = acc.shape[-1] // 2, scale.shape[0]
+    if not 0 < h <= hp <= MAX_GLU_WIDTH:
+        raise ValueError(f"hidden {h} padded to {hp}: the kernel takes 0 < h ≤ hp ≤ {MAX_GLU_WIDTH}")
+    for name, p in (("scale", scale), ("ln_bias", ln_bias)):
+        if p.dtype != torch.float32 or p.shape != (h,) or not p.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 ({h},) tensor, got {p.dtype} {tuple(p.shape)}")
+    if bias is not None and (bias.dtype != torch.float32 or bias.shape != (2 * hp,) or not bias.is_contiguous()):
+        raise ValueError(f"bias must be a contiguous float32 ({2 * hp},) tensor, got {bias.dtype} {tuple(bias.shape)}")
+    out = torch.empty((*acc.shape[:-1], hp), dtype=dtype, device=acc.device)
+    if out.numel() == 0:
+        return out
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    _GLU.launch(glu_layernorm, acc.device, lambda: f"acc {tuple(acc.shape)} h={h}", acc.data_ptr(), ptr(bias),
+                scale.data_ptr(), ln_bias.data_ptr(), out.data_ptr(), out.numel() // hp, h, hp, float(eps),
+                _DTYPE_CODE[dtype])
+    return out
+
+
+glu_layernorm.launches = 0  # kernel launches, counted only where the kernel launches

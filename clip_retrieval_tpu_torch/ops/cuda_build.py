@@ -55,6 +55,8 @@ LIBRARIES: dict[str, tuple[tuple[str, ...], dict[str, tuple]]] = {
     "block_fused": (("block_fused.cu",), {
         "crt_dense_epilogue": (_P, _P, _P, _P, _LL, _I, _I, _I, _P),
         "crt_layernorm": (_P, _P, _P, _P, _LL, _I, _F, _I, _P),
+        "crt_rope": (_P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P),
+        "crt_glu_layernorm": (_P, _P, _P, _P, _P, _LL, _I, _I, _F, _I, _P),
     }),
     "int8_scan": (("int8_scan.cu",), {  # K3
         "crt_int8_gather_scan": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),

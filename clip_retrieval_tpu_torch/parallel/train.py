@@ -26,7 +26,7 @@ dp groups its columns.
   computes (eps added after the square root, decay on every parameter).
 
 The towers' forward is `models/clip.py`'s own (`encode_image`, `encode_text`,
-SigLIP's included): `init_fn` attaches this rank's `_Comm` to every `Block`
+SigLIP's and EVA02's included; EVA02's inner LayerNorms run at tp = 1 only): `init_fn` attaches this rank's `_Comm` to every `Block`
 and to the text tower, whose hooks place the collectives above, and a block
 runs the heads its q slice holds.
 
@@ -182,6 +182,10 @@ def clip_contrastive_loss(img_feats: torch.Tensor, txt_feats: torch.Tensor, scal
 
 
 def _check_split(cfg: CLIPConfig, tp: int):
+    if tp > 1 and (cfg.attn_ln or cfg.vision_mlp == "swiglu"):
+        raise ValueError(f"{cfg.name}: tp={tp} would cut the inner LayerNorms (the attention output's over its "
+                         "heads, the SwiGLU hidden's over its columns) into slices whose statistics need every "
+                         "rank's part; this step runs such a config at tp=1 only")
     sizes = {"text_heads": cfg.text_heads, "vocab_size": cfg.vocab_size,
              "text_mlp": int(round(cfg.text_width * cfg.text_mlp_ratio))}
     if cfg.vision_kind != "resnet":

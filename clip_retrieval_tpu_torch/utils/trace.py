@@ -13,9 +13,11 @@ record where each batch's time goes:
 - inside `mapper.enqueue`: `mapper.image` and `mapper.text`, each CLIP
   tower queued, counter `tokens` = rows × the tower's sequence length
   (256 × 257 and 256 × 77 at ViT-L/14, 256 × 729 and 256 × 64 at SigLIP
-  So400m/384), `fused` = launches of the block's fused kernels
-  (`ops/block_fused.py`) and `eager` = dense and LayerNorm calls that took
-  the eager chain; inside `mapper.image` `visual.head`, the pooling head of
+  So400m/384, 256 × 577 and 256 × 77 at EVA02-L/14-336), `fused` =
+  launches of the block's fused kernels (`ops/block_fused.py`), `eager` =
+  dense, LayerNorm, rotary and gate calls that took the eager chain, and
+  `rope` and `glu` = the launches of the rotary epilogue and of the SwiGLU
+  gate among `fused`; inside `mapper.image` `visual.head`, the pooling head of
   a SigLIP image tower (`models/clip.py`);
 - `staging.stage`: the staging thread's pad, pin and host→device copy of a
   batch, carrying the reader's decode counters for it (`decode_samples`,

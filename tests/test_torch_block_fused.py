@@ -51,7 +51,8 @@ def _eager_ln_forward(self, x, eps):
     return y.to(x.dtype)
 
 
-def _eager_block_forward(self, x, attn_impl="auto"):
+def _eager_block_forward(self, x, attn_impl="auto", rope=None):
+    assert rope is None and self.attn.ln is None, "the eager chain before the fusion had no EVA02 block"
     y = self.ln_1(x, self.eps)
     a = self.attn
     q = _eager_dense(y, a.wq, a.bq)

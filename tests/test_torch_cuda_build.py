@@ -62,6 +62,9 @@ def _wrapper_calls(device="cpu", requires_grad=False):
         ("flash_attention", lambda: flash.flash_attention(*(q.reshape(1, 1, 4, 8),) * 3)),
         ("dense_epilogue", lambda: block_fused.dense_epilogue(acc, ln, dtype=torch.float32)),
         ("layernorm", lambda: block_fused.layernorm(acc, ln, ln * 0, 1e-5)),
+        ("rope_epilogue", lambda: block_fused.rope_epilogue(q, None, torch.ones(2, 3, 2, **f32), prefix=1,
+                                                            dtype=torch.float32)),
+        ("glu_layernorm", lambda: block_fused.glu_layernorm(acc, None, ln[:4], ln[:4] * 0, 1e-5, dtype=torch.float32)),
         ("int8_gather_scan", lambda: int8scan.int8_gather_scan(
             torch.ones(1, 4, dtype=torch.int8, device=device), lut[0, 0, :1], torch.ones(1, 2, 4, dtype=torch.int8,
             device=device), torch.ones(1, 2, **f32), torch.zeros(1, 2, **i32), torch.zeros(1, **i32))),
@@ -71,7 +74,7 @@ def _wrapper_calls(device="cpu", requires_grad=False):
     ]
 
 
-@pytest.mark.parametrize("index", range(6))
+@pytest.mark.parametrize("index", range(8))
 def test_every_wrapper_routes_through_cuda_build(index):
     name, call = _wrapper_calls()[index]
     assert call().device.type == "cpu"  # the plain version

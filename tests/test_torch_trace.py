@@ -227,7 +227,7 @@ def test_threads_keep_their_own_parents_and_batches():
             assert p["thread"] == s["thread"] and p["batch"] == s["batch"] == 100 + s["counters"]["n"] - 1
 
 
-@pytest.mark.parametrize("model,heads", [("test-tiny", 0), ("test-tiny-siglip", 1)])
+@pytest.mark.parametrize("model,heads", [("test-tiny", 0), ("test-tiny-siglip", 1), ("test-tiny-eva", 0)])
 def test_tower_spans_count_tokens(model, heads):
     """A mapper call records `mapper.image` and `mapper.text` inside
     `mapper.enqueue`, each counting rows × its sequence length and the fused
@@ -248,29 +248,33 @@ def test_tower_spans_count_tokens(model, heads):
     enqueue, image, text = by_name["mapper.enqueue"], by_name["mapper.image"], by_name["mapper.text"]
     assert image["parent"] == text["parent"] == enqueue["id"]
     # on the CPU the dense and LayerNorm calls run the plain versions: no kernel launch, no eager chain
-    assert image["counters"] == {"tokens": BS * (cfg.num_patches + int(cfg.class_token)), "fused": 0, "eager": 0}
-    assert text["counters"] == {"tokens": BS * cfg.context_length, "fused": 0, "eager": 0}
+    none = {"fused": 0, "eager": 0, "rope": 0, "glu": 0}
+    assert image["counters"] == {"tokens": BS * (cfg.num_patches + int(cfg.class_token)), **none}
+    assert text["counters"] == {"tokens": BS * cfg.context_length, **none}
     if heads:
         assert by_name["visual.head"]["parent"] == image["id"] and cfg.vision_seq_len == 25
 
 
 def _passes(cfg, tower: str) -> int:
-    """Dense and LayerNorm calls of one tower's forward in `models/clip.py`:
-    6 denses and 2 LayerNorms a block; the image tower adds the patch dense,
-    `ln_pre` where it has one and `ln_post`, a pooling head 5 denses and its
-    LayerNorm; the text tower adds `ln_final`."""
+    """Dense, LayerNorm, rotary and gate calls of one tower's forward in
+    `models/clip.py`: 6 denses and 2 LayerNorms a block (EVA02: q and k
+    rotary in place of their denses, the gate in place of the MLP-in dense,
+    and the attention output's LayerNorm); the image tower adds the patch
+    dense, `ln_pre` where it has one and `ln_post`, a pooling head 5 denses
+    and its LayerNorm; the text tower adds `ln_final`."""
     if tower == "text":
         return 8 * cfg.text_layers + 1
     head = 6 if cfg.pool == "map" else 0
-    return 8 * cfg.vision_layers + 1 + int(cfg.ln_pre) + 1 + head
+    return (8 + int(cfg.attn_ln)) * cfg.vision_layers + 1 + int(cfg.ln_pre) + 1 + head
 
 
-@pytest.mark.parametrize("model", ["test-tiny", "test-tiny-siglip"])
+@pytest.mark.parametrize("model", ["test-tiny", "test-tiny-siglip", "test-tiny-eva"])
 def test_tower_spans_count_fused_and_eager_passes(model, monkeypatch):
     """`fused` and `eager` are the differences of `block_fused`'s counters
-    over each tower's queuing: with every dense and LayerNorm counted as a
-    launch (as on the card), `fused` is the tower's number of them and
-    `eager` 0; with each counted as an eager-chain call, the other way round."""
+    over each tower's queuing: with every dense, LayerNorm, rotary and gate
+    pass counted as a launch (as on the card), `fused` is the tower's number
+    of them and `eager` 0, `rope` and `glu` the rotary and gate launches
+    among them; with each counted as an eager-chain call, the other way round."""
     from clip_retrieval_tpu_torch.ops import block_fused
 
     m = ClipMapper(enable_image=True, enable_text=True, clip_model=model, batch_size=BS, device="cpu")
@@ -290,8 +294,8 @@ def test_tower_spans_count_fused_and_eager_passes(model, monkeypatch):
             wrapped.launches = fn.launches
             return wrapped
 
-        monkeypatch.setattr(block_fused, "dense_epilogue", counting(block_fused.dense_epilogue))
-        monkeypatch.setattr(block_fused, "layernorm", counting(block_fused.layernorm))
+        for name in ("dense_epilogue", "layernorm", "rope_epilogue", "glu_layernorm"):
+            monkeypatch.setattr(block_fused, name, counting(getattr(block_fused, name)))
         before = {s["id"] for s in trace.export()}
         m(batch)
         monkeypatch.undo()
@@ -299,3 +303,7 @@ def test_tower_spans_count_fused_and_eager_passes(model, monkeypatch):
         for tower in ("image", "text"):
             c = spans[f"mapper.{tower}"]["counters"]
             assert c[counted] == want[tower] and c[other] == 0, (tower, c)
+            rotary = 2 * cfg.vision_layers if tower == "image" and cfg.rope != "none" else 0
+            gates = cfg.vision_layers if tower == "image" and cfg.vision_mlp == "swiglu" else 0
+            if counted == "fused":
+                assert (c["rope"], c["glu"]) == (rotary, gates), (tower, c)

@@ -45,7 +45,7 @@ from clip_retrieval_tpu.models import clip as jclip
 from clip_retrieval_tpu.models.configs import TEST_TINY as JTINY
 from clip_retrieval_tpu.parallel.train import clip_contrastive_loss as jax_loss
 from clip_retrieval_tpu_torch.models import clip as tclip
-from clip_retrieval_tpu_torch.models.configs import TEST_TINY, TEST_TINY_SIGLIP
+from clip_retrieval_tpu_torch.models.configs import TEST_TINY, TEST_TINY_EVA, TEST_TINY_SIGLIP
 from clip_retrieval_tpu_torch.models.loaders import from_jax_params
 from clip_retrieval_tpu_torch.ops import attention, flash
 from clip_retrieval_tpu_torch.parallel import train as ptrain
@@ -222,7 +222,7 @@ def test_loss_and_gradients_match_jax(tmp_path, batch, jax_reference, dp, tp):
                 assert _cos(g, w) >= MIN_COS, (name, _cos(g, w))
 
 
-@pytest.mark.parametrize("cfg", [TEST_TINY, TEST_TINY_SIGLIP], ids=lambda c: c.name)
+@pytest.mark.parametrize("cfg", [TEST_TINY, TEST_TINY_SIGLIP, TEST_TINY_EVA], ids=lambda c: c.name)
 def test_step_at_one_rank_is_the_models_own_forward(cfg):
     """At 1×1 the step's loss and gradients are those of `clip_forward` on the
     unsharded model, bit for bit: the step runs the towers' own forward."""
@@ -236,6 +236,15 @@ def test_step_at_one_rank_is_the_models_own_forward(cfg):
     want_grads = dict(model.named_parameters())
     for name, p in params.named_parameters():
         assert torch.equal(p.grad, want_grads[name].grad), name
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_step_refuses_to_split_the_inner_layernorms(tp):
+    """EVA02's attention-output and SwiGLU-hidden LayerNorms would see only
+    this rank's heads or hidden columns at tp > 1: the step raises, naming
+    them, before any group is made (no wrong loss)."""
+    with pytest.raises(ValueError, match="inner LayerNorms"):
+        ptrain.make_train_step(TEST_TINY_EVA, tp=tp, device="cpu")
 
 
 @pytest.mark.parametrize("dp,tp", [(1, 1), (1, 2)])
