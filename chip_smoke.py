@@ -180,6 +180,9 @@ FUSED_TOWERS = {"vit-l-14 image": (BATCH * 257, 1024, 4096, "quick_gelu", 1e-5),
                 "siglip image": (BATCH * 729, 1152, 4304, "gelu_tanh", 1e-6),
                 "siglip text": (BATCH * 64, 1152, 4304, "gelu_tanh", 1e-6)}
 FUSED_MIN_EQUAL = 0.999  # share of bf16 elements equal to the eager chain's where an activation runs
+# the one-kernel dense (`block_fused.dense_gemm`) at SigLIP So400m/384's image fc1, batch 256: (M, K, N, act);
+# against the split route at least this share of bf16 elements equal (the products sum in other orders)
+GEMM_SHAPE, GEMM_MIN_EQUAL = (BATCH * 729, 1152, 4304, "gelu_tanh"), 0.99
 # EVA02-L/14-336 (the third cell's model) at batch 256: its image tower's rows, width, head dim, the rotary
 # reference grid, the SwiGLU hidden and that hidden padded (`models/clip.py::GLU_ALIGN`)
 EVA_MODEL = "EVA02-L-14-336"
@@ -509,6 +512,63 @@ def phase_block_fused(block_fused, gpu: str) -> dict:
     return out
 
 
+def phase_dense_gemm(block_fused, gpu: str) -> dict:
+    """The one-kernel dense (`block_fused.dense_gemm`, `csrc/dense_gemm.cu`)
+    at SigLIP So400m/384's image fc1 (`GEMM_SHAPE`, bias and tanh GELU), bf16:
+    against the split route (cuBLAS's f32 product and `dense_epilogue`)
+    within the bound tests/test_torch_dense_gemm.py states and equal on ≥
+    `GEMM_MIN_EQUAL` of the elements (the products sum in other orders),
+    and its f32 product
+    against an f64 product on 2048 rows within K·2⁻²³ of Σ|x||w|.  Timed beside the split
+    route (the library yardstick), `torch.mm` alone, the plain version (the
+    f32 product and the eager epilogue) and its bound (the FLOPs at 989
+    TFLOP/s, or x, w and the output moved once, whichever is longer).
+    Returns the kernels line's numbers."""
+    import torch
+
+    m, k, n, act = GEMM_SHAPE
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(22)
+    bf16 = torch.bfloat16
+    x = (torch.randn(m, k, generator=gen, device="cuda") * 0.5).to(bf16)
+    w = (torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5).to(bf16)
+    bias = torch.randn(n, generator=gen, device="cuda") * 0.1
+    kern = lambda: block_fused.dense_gemm(x, w, bias, act=act)  # noqa: E731
+    split = lambda: block_fused.dense_epilogue(torch.mm(x, w, out_dtype=torch.float32), bias, act=act,  # noqa: E731
+                                               dtype=bf16)
+    plain = lambda: block_fused.dense_gemm_reference(x, w, bias, act, None, bf16)  # noqa: E731
+    got, want = kern(), split()
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    where = f"({m}, {k}) @ ({k}, {n}) act={act}"
+    mag = torch.mm(x.abs(), w.abs(), out_dtype=torch.float32)
+    t = torch.mm(x, w, out_dtype=torch.float32) + bias
+    check(bool((diff <= 1.2 * (2 * k * 2.0 ** -23 * mag + bf16_ulp(t)) + 2 * bf16_ulp(want)).all()),
+          f"dense_gemm further off the split route than the sums' orders explain at {where}")
+    del mag, t
+    equal = (diff == 0).float().mean().item()
+    check(equal >= GEMM_MIN_EQUAL, f"dense_gemm equal to the split route on only {equal:.5f} at {where}")
+    err = diff.max().item()
+    del got, want, diff
+    rows = torch.arange(0, m, m // 2048, device="cuda")
+    prod = block_fused.dense_gemm(x, w, dtype=torch.float32)[rows].double()
+    ref, mag = x[rows].double() @ w.double(), x[rows].double().abs() @ w.double().abs()
+    rel = ((prod - ref).abs() / mag).max().item()
+    check(rel <= k * 2.0 ** -23, f"dense_gemm's f32 product is {rel:.3e} of Σ|x||w| off an f64 product at {where}")
+    del prod, ref, mag
+    torch.cuda.empty_cache()
+    ms, split_ms = time_pair(kern, split)
+    mm_ms, plain_ms = cuda_ms(lambda: torch.mm(x, w), 10), cuda_ms(plain, 3)
+    bound = 1e3 * max(2 * m * n * k / BF16_FLOPS, 2 * (m * k + k * n + m * n) / HBM_BPS)
+    print(f"  [{gpu}] dense_gemm {where}: {ms:.4f} ms/call, split route (cuBLAS f32 product + dense_epilogue) "
+          f"{split_ms:.4f}, torch.mm alone {mm_ms:.4f}, plain {plain_ms:.4f}, bound {bound:.4f} (FLOPs); max abs vs "
+          f"split {err:.3e}, equal share {equal:.5f}; f32 product vs f64 {rel:.3e} of Σ|x||w|")
+    del x, w
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "library_ms": split_ms,
+            "mm_ms": mm_ms}
+
+
 def phase_eva_fused(block_fused, gpu: str) -> dict:
     """EVA02's two fused passes against their plain versions (run on the
     card) at the cell's shapes, bf16 batch 256: the rotary epilogue of q and
@@ -627,11 +687,11 @@ def phase_main_path(kernels: dict, gpu: str, model: str = MODEL) -> dict:
     check(launches == expected, f"K1 launched {launches} times on the main path, expected {expected}")
     check(by_route == {"wgmma": expected, "mma_sync": 0, "f32": 0}, f"K1's routes on the main path: {by_route}")
     check(counts["k2"] == counts["k3"] == counts["k4"] == 0, f"another kernel launched on the embedding path: {counts}")
-    # a batch: 6 epilogues and 2 LayerNorms a block, the patch dense, ln_pre, ln_post and ln_final; an EVA02
+    # a batch: 6 denses and 2 LayerNorms a block, the patch dense, ln_pre, ln_post and ln_final; an EVA02
     # image block turns q and k in the rotary epilogue, forms its hidden in the gate pass and adds the
-    # attention output's LayerNorm
+    # attention output's LayerNorm.  At batch 256 every dense has rows enough for the one-kernel GEMM
     rope, glu = (2 * vl if cfg.rope != "none" else 0), (vl if cfg.vision_mlp == "swiglu" else 0)
-    fused = {"epilogue": 2 * (6 * layers + 1 - rope - glu),
+    fused = {"gemm": 2 * (6 * layers + 1 - rope - glu), "epilogue": 0,
              "layernorm": 2 * (2 * layers + int(cfg.attn_ln) * vl + int(cfg.ln_pre) + 2),
              "rope": 2 * rope, "glu": 2 * glu}
     check(all(counts[k] == v for k, v in fused.items()), f"fused launches {counts}, expected {fused}")
@@ -786,8 +846,7 @@ def phase_sdpa(flash, kernels: dict, gpu: str) -> tuple[dict, float, float, floa
     out = sdpa(q, k, v)
     torch.cuda.synchronize()
     counts = read_counts(kernels)
-    check(counts == {"k1": 0, "k2": 1, "k3": 0, "k4": 0, "epilogue": 0, "layernorm": 0, "rope": 0, "glu": 0},
-          f"sdpa launched {counts}, expected K2 once")
+    check(counts == {**dict.fromkeys(kernels, 0), "k2": 1}, f"sdpa launched {counts}, expected K2 once")
     ref = flash.flash_attention_reference(q.float(), k.float(), v.float())
     err = (out.float() - ref).abs().max().item()
     check(err <= BF16_MAX_ABS, f"sdpa output off by {err:.3e}")
@@ -2497,7 +2556,7 @@ RANK_CODE = ("import sys\nfrom clip_retrieval_tpu_torch import cli\n"
              "from clip_retrieval_tpu_torch.ops import block_fused, flash\ncli.main(sys.argv[1:])\n"
              "print('K1_LAUNCHES', flash.flash_attention_packed.launches, block_fused.dense_epilogue.launches, "
              "block_fused.layernorm.launches, block_fused.rope_epilogue.launches, block_fused.glu_layernorm.launches, "
-             "flush=True)\n")
+             "block_fused.dense_gemm.launches, flush=True)\n")
 
 
 def phase_ranks(gpu: str) -> tuple[dict, dict]:
@@ -2570,7 +2629,7 @@ def phase_ranks(gpu: str) -> tuple[dict, dict]:
     def path(a: str, b: str) -> dict:
         return {"k1": k1[a] + k1[b], "k2": 0, "k3": 0, "k4": 0, "epilogue": fused[a][0] + fused[b][0],
                 "layernorm": fused[a][1] + fused[b][1], "rope": fused[a][2] + fused[b][2],
-                "glu": fused[a][3] + fused[b][3]}
+                "glu": fused[a][3] + fused[b][3], "gemm": fused[a][4] + fused[b][4]}
 
     return path("pod0", "pod1"), path("slurm0", "slurm1")
 
@@ -2655,7 +2714,7 @@ def run() -> int:
     torch.backends.cudnn.allow_tf32 = False
     kernels = {"k1": flash.flash_attention_packed, "k2": flash.flash_attention, "k3": int8scan.int8_gather_scan,
                "k4": adc_scan.adc_scan, "epilogue": block_fused.dense_epilogue, "layernorm": block_fused.layernorm,
-               "rope": block_fused.rope_epilogue, "glu": block_fused.glu_layernorm}
+               "rope": block_fused.rope_epilogue, "glu": block_fused.glu_layernorm, "gemm": block_fused.dense_gemm}
 
     phase = "device"
     try:
@@ -2690,6 +2749,9 @@ def run() -> int:
 
         phase = "EVA02 fused vs plain"
         eva_fused = phase_eva_fused(block_fused, gpu)
+
+        phase = "dense GEMM vs plain"
+        gemm = phase_dense_gemm(block_fused, gpu)
 
         phase = "main path"
         inference_counts = phase_main_path(kernels, gpu)
@@ -2851,6 +2913,9 @@ def run() -> int:
             e = eva_fused[key]
             rows.append((key, name, "block_fused.cu", "none: the JAX package has no EVA02", e["max_abs_err"],
                          e["ms"], e["plain_ms"], e["bound_ms"], "bytes", None))
+        rows.append(("gemm", "dense_gemm", "dense_gemm.cu", "none: XLA fuses the epilogue into the TPU's matmul",
+                     gemm["max_abs_err"], gemm["ms"], gemm["plain_ms"], gemm["bound_ms"], "flops",
+                     gemm["library_ms"]))
         line = []
         for key, name, src, replaces, err, ms, p_ms, bound, by, lib in rows:
             launches = by_path(key)

@@ -53,19 +53,20 @@
 //   row needed 164 registers a thread there, three blocks an SM, and ran at
 //   half the HBM rate.
 //
-// Rounding follows the eager chain, so the port keeps the JAX package's
-// casting points: t = round(acc + b); each activation rounds where its eager
-// ops store a tensor (quick_gelu: round(1.702·t), round(sigmoid), round of
-// the product; GELU and tanh GELU once, from the same f32 formulas as
-// PyTorch's CUDA kernels); then round(res + t).  In f32 the rounding is the
-// identity.  Without an activation the result is bit-identical to the eager
-// chain's.  The rotation and the gate have no JAX counterpart to follow: they
-// stay in f32 from the accumulator on and round once, where they write.
+// Rounding follows the eager chain (`dense_epilogue.cuh`, the per-element
+// arithmetic this file shares with `dense_gemm.cu`): t = round(acc + b), the
+// activation with the eager ops' own roundings, then round(res + t).  In f32
+// the rounding is the identity.  Without an activation the result is
+// bit-identical to the eager chain's.  The rotation and the gate have no JAX
+// counterpart to follow: they stay in f32 from the accumulator on and round
+// once, where they write.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "dense_epilogue.cuh"
 
 namespace {
 
@@ -75,16 +76,6 @@ constexpr int kChunk = 8;              // elements a thread owns at once
 constexpr int kEpilogueThreads = 256;
 constexpr int kLnWarps = 4;            // rows per LayerNorm block
 constexpr int kGluThreads = 128;       // threads a gate row
-
-enum Act { kNone = 0, kQuickGelu = 1, kGelu = 2, kGeluTanh = 3 };
-
-// where the eager chain stores a tensor of type T: round to T and back
-template <typename T>
-__device__ __forceinline__ float rnd(float x);
-template <>
-__device__ __forceinline__ float rnd<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float rnd<bf16>(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
@@ -124,36 +115,6 @@ __device__ __forceinline__ void store8(bf16* p, const float* v) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
   *reinterpret_cast<uint4*>(p) = u;
-}
-
-// The activation on t (already rounded to T), with the eager ops' own
-// roundings inside; the caller rounds the result.  The f32 formulas are those
-// of PyTorch's CUDA kernels (sigmoid, and GeluCUDAKernelImpl for both GELUs).
-template <typename T, int ACT>
-__device__ __forceinline__ float activation(float t) {
-  if constexpr (ACT == kQuickGelu) {
-    const float u = rnd<T>(t * 1.702f);                 // 1.702 * x
-    const float s = rnd<T>(1.0f / (1.0f + expf(-u)));    // torch.sigmoid
-    return t * s;
-  } else if constexpr (ACT == kGelu) {
-    constexpr float kAlpha = 0.70710678118654752440;     // M_SQRT1_2
-    return t * 0.5f * (1.0f + erff(t * kAlpha));
-  } else if constexpr (ACT == kGeluTanh) {
-    constexpr float kBeta = 1.41421356237309504880 * 1.12837916709551257390 * 0.5;  // M_SQRT2 * M_2_SQRTPI / 2
-    constexpr float kKappa = 0.044715;
-    const float cube = t * t * t;
-    const float inner = kBeta * (t + kKappa * cube);
-    return 0.5f * t * (1.0f + tanhf(inner));
-  } else {
-    return t;
-  }
-}
-
-template <typename T, int ACT>
-__device__ __forceinline__ float epilogue_one(float acc, float b, bool has_res, float res) {
-  float t = rnd<T>(acc + b);
-  if constexpr (ACT != kNone) t = rnd<T>(activation<T, ACT>(t));
-  return has_res ? res + t : t;
 }
 
 // acc (total = rows·n, f32), bias (n, f32, or null), res (total, T, or null)

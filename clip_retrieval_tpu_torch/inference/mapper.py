@@ -27,8 +27,11 @@ with "image_tensor" (uint8 HWC) / "text_tokens" → output dict with
   with the counter `tokens`: the rows the tower runs × its sequence length,
   and the counters `fused` (launches of `ops/block_fused.py`'s kernels
   while the tower was queued), `eager` (its dense, LayerNorm, rotary and
-  gate calls that took the eager chain instead), and `rope` and `glu`, the
-  launches of the rotary epilogue and of the SwiGLU gate among `fused`.
+  gate calls that took the eager chain instead), `rope` and `glu`, the
+  launches of the rotary epilogue and of the SwiGLU gate among `fused`,
+  and `gemm` and `split`, its dense calls that took the one-kernel GEMM
+  (`block_fused.dense_gemm`, also among `fused`) and those that took the
+  f32 product and the epilogue's pass (`block_fused.dense_epilogue`).
 """
 
 from __future__ import annotations
@@ -49,14 +52,19 @@ from .staging import STAGED_KEY
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def _counts() -> tuple[int, int, int, int]:
-    """(fused launches, eager calls, rotary launches, gate launches) so far."""
-    return (*block_fused.counts(), block_fused.rope_epilogue.launches, block_fused.glu_layernorm.launches)
+_COUNTERS = ("fused", "eager", "rope", "glu", "gemm", "split")
 
 
-def _fused_counts(before: tuple[int, int, int, int]) -> dict[str, int]:
+def _counts() -> tuple[int, ...]:
+    """The `_COUNTERS` so far: fused launches, eager calls, rotary launches,
+    gate launches, one-kernel GEMM launches, split-route epilogue launches."""
+    return (*block_fused.counts(), block_fused.rope_epilogue.launches, block_fused.glu_layernorm.launches,
+            block_fused.dense_gemm.launches, block_fused.dense_epilogue.launches)
+
+
+def _fused_counts(before: tuple[int, ...]) -> dict[str, int]:
     """The tower's counters since `before` (`_counts()`)."""
-    return {key: now - then for key, now, then in zip(("fused", "eager", "rope", "glu"), _counts(), before)}
+    return {key: now - then for key, now, then in zip(_COUNTERS, _counts(), before)}
 
 
 class ClipMapper:

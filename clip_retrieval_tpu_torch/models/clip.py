@@ -30,10 +30,16 @@ requires grad, as in the train step) takes the eager chain instead.
 
 The dp×tp train step (`parallel/train.py`) runs these same towers on its
 slices of the weights.  Each `Block` and the text tower hold a communicator,
-`LOCAL` (the identity) unless the step attaches its own: `copy` after each
-LayerNorm, `reduce` on the f32 product of `wo` and `w_out` before their bias
-and residual, and `embed` for the text tower's token rows.  A block counts
-its heads from the width of its q projection, so a tp slice runs its own.
+`LOCAL` (the identity; no `reduce`) unless the step attaches its own: `copy`
+after each LayerNorm, `reduce` on the f32 product of `wo` and `w_out` before
+their bias and residual, and `embed` for the text tower's token rows.  A
+block counts its heads from the width of its q projection, so a tp slice
+runs its own.
+
+A large bf16 dense on CUDA runs its product and epilogue as one kernel
+(`block_fused.dense_gemm`, chosen by `block_fused.dense_route`); the f32
+product of a tp `reduce` and every other call take the product and the
+epilogue's pass.
 """
 
 from __future__ import annotations
@@ -53,10 +59,14 @@ from .configs import CLIPConfig, port_config
 IMAGE_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], dtype=np.float32)
 IMAGE_STD = np.array([0.26862954, 0.26130258, 0.27577711], dtype=np.float32)
 # the kernel libraries the towers launch on CUDA tensors (`ops/cuda_build.py`)
-KERNEL_LIBRARIES = (flash.LIBRARY, block_fused.LIBRARY)
+KERNEL_LIBRARIES = (flash.LIBRARY, block_fused.LIBRARY, block_fused.GEMM_LIBRARY)
 # the SwiGLU hidden is padded with zero columns to a multiple of this, so that
 # the gate product's rows and the hidden's stay 16-byte aligned
 GLU_ALIGN = 8
+# the im2col rows of the patch embedding lie this many elements apart at
+# least (P·P·3 = 588 at P 14 rounded up to 592), so that they stay 16-byte
+# aligned and the product can take `block_fused.dense_gemm`
+PATCH_ROW_ALIGN = 8
 
 
 def _param(*shape, device=None) -> nn.Parameter:
@@ -104,10 +114,23 @@ def _dense(
     residual: torch.Tensor | None = None,
     reduce=None,
 ) -> torch.Tensor:
-    """residual + act(x @ w + b) in x's dtype: the f32 product, then one fused
-    pass (`ops/block_fused.py`) that adds the bias in f32, rounds to x's
-    dtype, applies the activation and adds the residual.  `reduce` (a
-    block's row-parallel products) sums the f32 product over tp first."""
+    """residual + act(x @ w + b) in x's dtype: the product accumulated in
+    f32, the bias added in f32, rounded to x's dtype, the activation and the
+    residual (`ops/block_fused.py`).  `block_fused.dense_route` picks the
+    route: "gemm" runs it all as one kernel (`block_fused.dense_gemm`, large
+    bf16 calls on CUDA), "split" the f32 product and then one fused pass.
+    `reduce` (a block's row-parallel products) sums the f32 product over tp
+    first."""
+    x2 = x.reshape(-1, x.shape[-1])
+    n = w.shape[-1]
+    aligned = x2.stride(-1) == 1 and x2.data_ptr() % 16 == 0 and (residual is None or residual.data_ptr() % 16 == 0)
+    route = block_fused.dense_route(x2.shape[0], n, x2.shape[1], cuda=x.is_cuda, dtype=x.dtype, lda=x2.stride(0),
+                                    aligned=aligned, reduce=reduce is not None,
+                                    grad=_differentiable(x, w, b, residual))
+    if route == "gemm":
+        res = None if residual is None else residual.reshape(-1, n)
+        y = block_fused.dense_gemm(x2, w.to(x.dtype), b, act=act, residual=res)
+        return y.reshape(*x.shape[:-1], n)
     y = matmul_f32(x, w)
     if reduce is not None:
         y = reduce(y)
@@ -129,14 +152,13 @@ def _rope_dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, table: torch.
 
 class _Local:
     """The towers' tensor-parallel hooks on a rank that holds every weight:
-    each is the identity (`parallel/train.py::_Comm` has the tp versions)."""
+    each is the identity, and `reduce` None, since there is nothing to sum
+    (`parallel/train.py::_Comm` has the tp versions)."""
+
+    reduce = None
 
     @staticmethod
     def copy(x: torch.Tensor) -> torch.Tensor:
-        return x
-
-    @staticmethod
-    def reduce(x: torch.Tensor) -> torch.Tensor:
         return x
 
     @staticmethod
@@ -345,13 +367,15 @@ class VisionTransformer(nn.Module):
         """The patch convolution, stride P and "valid" (the pixels past the
         last whole patch dropped), as im2col over the top-left g·P pixels:
         (B, H, W, 3) → (B, g, P, g, P, 3) → (B, g·g, P·P·3), then one
-        matmul → (B, g·g, width) in x's dtype."""
+        matmul → (B, g·g, width) in x's dtype.  The im2col is written with
+        its rows `PATCH_ROW_ALIGN`-aligned (the pad columns never read)."""
         p_sz, g = self.cfg.patch_size, self.cfg.grid_size
-        b = x.shape[0]
+        b, k = x.shape[0], p_sz * p_sz * 3
         if x.shape[1:3] != (g * p_sz, g * p_sz):
             x = x[:, : g * p_sz, : g * p_sz]
-        x = x.reshape(b, g, p_sz, g, p_sz, 3).permute(0, 1, 3, 2, 4, 5).reshape(b, g * g, p_sz * p_sz * 3)
-        return _dense(x, self.patch_embed.kernel.reshape(-1, self.cfg.vision_width), self.patch_embed.bias)
+        cols = x.new_empty(b, g * g, -(-k // PATCH_ROW_ALIGN) * PATCH_ROW_ALIGN)[..., :k]
+        cols.view(b, g, g, p_sz, p_sz * 3).copy_(x.reshape(b, g, p_sz, g, p_sz * 3).permute(0, 1, 3, 2, 4))
+        return _dense(cols, self.patch_embed.kernel.reshape(-1, self.cfg.vision_width), self.patch_embed.bias)
 
     def forward(self, x: torch.Tensor, attn_impl: str = "auto") -> torch.Tensor:
         """x: normalized (B, H, W, 3) in the compute dtype → f32

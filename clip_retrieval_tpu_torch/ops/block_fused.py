@@ -1,9 +1,11 @@
 """A transformer block's elementwise work as hand-written kernels: the
 epilogue after each dense, a one-pass LayerNorm, and for a rotary SwiGLU
 tower (EVA02) the q/k products' rotary epilogue and the SwiGLU gate with its
-LayerNorm.
+LayerNorm; and a dense's product with its epilogue as one GEMM kernel.
 
-Both are entries of `csrc/block_fused.cu` (built with nvcc at first use).
+The elementwise passes are entries of `csrc/block_fused.cu`, the GEMM
+(`dense_gemm`) the entry of `csrc/dense_gemm.cu` (each built with nvcc at
+first use).
 They replace no Pallas kernel of the JAX package: on the TPU, XLA fuses the
 bias add, the activation, the residual add and the casts into the matmul's
 consumer, and LayerNorm into one pass, while eager PyTorch runs each op as
@@ -17,6 +19,14 @@ Each wrapper counts its launches (`cuda_build.Kernel.launch`); `record_eager`
 counts the dense, LayerNorm, rotary and gate calls of `models/clip.py` that
 took the eager chain because an input requires grad (the kernels have no
 backward).
+
+A dense of `models/clip.py` on CUDA takes one of two routes, chosen by
+`dense_route` from what the call shows: "gemm", `dense_gemm`'s one kernel
+that applies the epilogue to the product in its registers, or "split", the
+f32 product by cuBLAS and `dense_epilogue` over it.  Both compute each
+element of the epilogue with the same device function
+(`csrc/dense_epilogue.cuh`); the products differ only in the order of the
+f32 sums.
 """
 
 from __future__ import annotations
@@ -34,10 +44,22 @@ _EPILOGUE = cuda_build.Kernel(LIBRARY, "crt_dense_epilogue")
 _LAYERNORM = cuda_build.Kernel(LIBRARY, "crt_layernorm")
 _ROPE = cuda_build.Kernel(LIBRARY, "crt_rope")
 _GLU = cuda_build.Kernel(LIBRARY, "crt_glu_layernorm")
+GEMM_LIBRARY = "dense_gemm"
+_GEMM = cuda_build.Kernel(GEMM_LIBRARY, "crt_dense_gemm")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 ACT_CODE = {None: 0, "quick_gelu": 1, "gelu": 2, "gelu_tanh": 3}
 MAX_LN_WIDTH = 2048  # the row in registers: 8 f32 a lane per 256 of width, 64 at most
 MAX_GLU_WIDTH = 4096  # the gate's padded hidden in a block's registers, 32 f32 a thread at most
+# the fewest rows at which `dense_gemm` was timed against the split route, and beat it (tools/ab_dense.py on an
+# H100, PERF.md: 256 × 1152 → 1152 in 0.025 ms against 0.046); fewer rows, as the pooling head's one query row,
+# stay split
+GEMM_MIN_ROWS = 256
+# of each 192-column tile of `dense_gemm`, the 64-column groups whose epilogue its consumer warps run
+# themselves, by activation and then by whether a residual is added; the finisher warps run the rest under
+# the next tile's products.  The costlier an element's epilogue, the more the consumers take, so that the
+# finishers keep up (tools/ab_dense.py --modes, PERF.md)
+GEMM_DIRECT = {None: (0, 1), "gelu": (1, 1), "gelu_tanh": (2, 2), "quick_gelu": (3, 3)}
+
 
 
 def activation(x: torch.Tensor, kind: str) -> torch.Tensor:
@@ -114,8 +136,34 @@ record_eager.calls = 0
 
 def counts() -> tuple[int, int]:
     """(kernel launches of every wrapper, eager-chain calls) so far."""
-    launches = dense_epilogue.launches + layernorm.launches + rope_epilogue.launches + glu_layernorm.launches
+    launches = (dense_epilogue.launches + layernorm.launches + rope_epilogue.launches + glu_layernorm.launches
+                + dense_gemm.launches)
     return launches, record_eager.calls
+
+
+def dense_route(m: int, n: int, k: int, *, cuda: bool, dtype: torch.dtype, lda: int | None = None,
+                aligned: bool = True, reduce: bool = False, grad: bool = False) -> str:
+    """The route of a dense x (m, k) @ w (k, n) with its epilogue: "gemm"
+    (`dense_gemm`) for a CUDA bf16 call with m ≥ `GEMM_MIN_ROWS`, n a
+    multiple of 8, x's rows `lda` elements apart (k by default) with lda a
+    multiple of 8 (TMA's 16-byte strides), x's and the residual's data
+    16-byte aligned (`aligned`), no tensor-parallel `reduce` of the f32 product and nothing
+    for autograd to record (`grad`); "split" (the f32 product, then
+    `dense_epilogue` or its eager chain) for every other call."""
+    lda = k if lda is None else lda
+    fused = (cuda and dtype == torch.bfloat16 and not reduce and not grad and aligned and k > 0
+             and n % 8 == 0 and lda % 8 == 0 and lda >= k and m >= GEMM_MIN_ROWS)
+    return "gemm" if fused else "split"
+
+
+def dense_gemm_reference(
+    x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None, act: str | None, residual: torch.Tensor | None,
+    dtype: torch.dtype,
+) -> torch.Tensor:
+    """The plain dense: x @ w in f32, then `dense_epilogue_reference` in
+    `dtype`; with dtype f32 and nothing to add, the f32 product itself."""
+    acc = torch.matmul(x.float(), w.float())
+    return dense_epilogue_reference(acc, bias, act, residual, dtype)
 
 
 def dense_epilogue(
@@ -270,3 +318,64 @@ def glu_layernorm(
 
 
 glu_layernorm.launches = 0  # kernel launches, counted only where the kernel launches
+
+
+
+def dense_gemm(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    bias: torch.Tensor | None = None,
+    *,
+    act: str | None = None,
+    residual: torch.Tensor | None = None,
+    dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """`dense_gemm_reference` in one kernel: residual + act(x @ w + bias) in
+    bf16, the product accumulated in f32 in registers and the epilogue
+    (`dense_epilogue`'s arithmetic) applied there, so that no f32 product is
+    written.  With dtype f32: the f32 product alone.
+
+    CUDA tensors: x (M, K) bf16 with unit column stride and a row stride
+    that is a multiple of 8, 16-byte aligned; w (K, N) bf16 contiguous, N a
+    multiple of 8, 16-byte aligned; bias f32 (N,) or None; residual bf16 (M,
+    N) contiguous and 16-byte aligned, or None; with dtype f32 no bias, act
+    or residual; anything else raises.  CPU tensors: the plain version."""
+    kind = cuda_build.route("dense_gemm", x, w, bias, residual)
+    if act not in ACT_CODE:
+        raise ValueError(f"unknown act {act}")
+    if kind == "cpu":
+        return dense_gemm_reference(x, w, bias, act, residual, dtype)
+    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
+        raise ValueError(f"x (M, K) and w (K, N) expected, got {tuple(x.shape)} and {tuple(w.shape)}")
+    m, k = x.shape
+    n = w.shape[1]
+    if k == 0:
+        raise ValueError("dense_gemm needs a depth K > 0")
+    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+        raise TypeError(f"dense_gemm multiplies bfloat16 operands, got {x.dtype} and {w.dtype}")
+    if (x.stride(1) != 1 and k > 1) or x.stride(0) % 8 or x.stride(0) < k or x.data_ptr() % 16:
+        raise ValueError(f"x must have unit column stride, a row stride that is a multiple of 8 and 16-byte "
+                         f"aligned data, got strides {x.stride()}")
+    if not w.is_contiguous() or n % 8 or w.data_ptr() % 16:
+        raise ValueError(f"w must be contiguous and 16-byte aligned with N a multiple of 8, got {tuple(w.shape)}")
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"dense_gemm writes bfloat16 or float32, not {dtype}")
+    if dtype == torch.float32 and (bias is not None or act is not None or residual is not None):
+        raise ValueError("dense_gemm writes the f32 product alone: no bias, act or residual")
+    if bias is not None and (bias.dtype != torch.float32 or bias.shape != (n,) or not bias.is_contiguous()):
+        raise ValueError(f"bias must be a contiguous float32 ({n},) tensor, got {bias.dtype} {tuple(bias.shape)}")
+    if residual is not None and (residual.dtype != torch.bfloat16 or residual.shape != (m, n)
+                                 or not residual.is_contiguous() or residual.data_ptr() % 16):
+        raise ValueError(f"residual must be a contiguous, 16-byte aligned bfloat16 tensor of shape {(m, n)}, "
+                         f"got {residual.dtype} {tuple(residual.shape)} contiguous={residual.is_contiguous()}")
+    out = torch.empty((m, n), dtype=dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    _GEMM.launch(dense_gemm, x.device, lambda: f"x {tuple(x.shape)} w {tuple(w.shape)}", x.data_ptr(),
+                 w.data_ptr(), ptr(bias), ptr(residual), out.data_ptr(), m, n, k, x.stride(0), ACT_CODE[act],
+                 int(dtype == torch.float32), GEMM_DIRECT[act][residual is not None])
+    return out
+
+
+dense_gemm.launches = 0  # kernel launches, counted only where the kernel launches

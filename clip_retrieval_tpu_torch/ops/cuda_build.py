@@ -7,11 +7,12 @@ entry.  Every entry takes the stream last and returns a cudaError_t value
 (0 on success), which `crt_cuda_error_string`, in every library, names.
 
 A library is compiled at first use into `build/torch_kernels/<hash>/` at the
-root of the checkout, where the hash covers the sources, the nvcc flags and
-`nvcc --version`.  The kernels build only from a checkout (a directory
-holding `pyproject.toml` above the package); an installed copy of the package
-refuses to build rather than write beside site-packages.  A source with a
-plain C interface builds in seconds; nothing includes PyTorch's headers.
+root of the checkout, where the hash covers the sources, the headers under
+`csrc/`, the nvcc flags and `nvcc --version`.  The kernels build only from a
+checkout (a directory holding `pyproject.toml` above the package); an
+installed copy of the package refuses to build rather than write beside
+site-packages.  A source with a plain C interface builds in seconds; nothing
+includes PyTorch's headers.
 Each library has its own lock, so different libraries build in parallel when
 called from several threads (`build_all`).  Nothing here runs at import
 time: the CPU tests import every module.
@@ -58,6 +59,9 @@ LIBRARIES: dict[str, tuple[tuple[str, ...], dict[str, tuple]]] = {
         "crt_rope": (_P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P),
         "crt_glu_layernorm": (_P, _P, _P, _P, _P, _LL, _I, _I, _F, _I, _P),
     }),
+    "dense_gemm": (("dense_gemm.cu",), {
+        "crt_dense_gemm": (_P, _P, _P, _P, _P, _LL, _I, _I, _LL, _I, _I, _I, _P),
+    }),
     "int8_scan": (("int8_scan.cu",), {  # K3
         "crt_int8_gather_scan": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     }),
@@ -84,7 +88,7 @@ def nvcc_path() -> str:
 
 def _digest(sources: list[Path], nvcc: str) -> str:
     h = hashlib.sha256()
-    for src in sources:
+    for src in [*sources, *sorted(CSRC.glob("*.cuh"))]:  # the headers the sources may include
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())

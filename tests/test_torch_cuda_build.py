@@ -65,6 +65,7 @@ def _wrapper_calls(device="cpu", requires_grad=False):
         ("rope_epilogue", lambda: block_fused.rope_epilogue(q, None, torch.ones(2, 3, 2, **f32), prefix=1,
                                                             dtype=torch.float32)),
         ("glu_layernorm", lambda: block_fused.glu_layernorm(acc, None, ln[:4], ln[:4] * 0, 1e-5, dtype=torch.float32)),
+        ("dense_gemm", lambda: block_fused.dense_gemm(acc, acc.t(), ln[:3], act="gelu_tanh", dtype=torch.float32)),
         ("int8_gather_scan", lambda: int8scan.int8_gather_scan(
             torch.ones(1, 4, dtype=torch.int8, device=device), lut[0, 0, :1], torch.ones(1, 2, 4, dtype=torch.int8,
             device=device), torch.ones(1, 2, **f32), torch.zeros(1, 2, **i32), torch.zeros(1, **i32))),
@@ -74,7 +75,7 @@ def _wrapper_calls(device="cpu", requires_grad=False):
     ]
 
 
-@pytest.mark.parametrize("index", range(8))
+@pytest.mark.parametrize("index", range(9))
 def test_every_wrapper_routes_through_cuda_build(index):
     name, call = _wrapper_calls()[index]
     assert call().device.type == "cpu"  # the plain version

@@ -248,7 +248,7 @@ def test_tower_spans_count_tokens(model, heads):
     enqueue, image, text = by_name["mapper.enqueue"], by_name["mapper.image"], by_name["mapper.text"]
     assert image["parent"] == text["parent"] == enqueue["id"]
     # on the CPU the dense and LayerNorm calls run the plain versions: no kernel launch, no eager chain
-    none = {"fused": 0, "eager": 0, "rope": 0, "glu": 0}
+    none = {"fused": 0, "eager": 0, "rope": 0, "glu": 0, "gemm": 0, "split": 0}
     assert image["counters"] == {"tokens": BS * (cfg.num_patches + int(cfg.class_token)), **none}
     assert text["counters"] == {"tokens": BS * cfg.context_length, **none}
     if heads:
