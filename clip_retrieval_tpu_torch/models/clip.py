@@ -117,24 +117,20 @@ def _dense(
     """residual + act(x @ w + b) in x's dtype: the product accumulated in
     f32, the bias added in f32, rounded to x's dtype, the activation and the
     residual (`ops/block_fused.py`).  `block_fused.dense_route` picks the
-    route: "gemm" runs it all as one kernel (`block_fused.dense_gemm`, large
-    bf16 calls on CUDA), "split" the f32 product and then one fused pass.
-    `reduce` (a block's row-parallel products) sums the f32 product over tp
-    first."""
-    x2 = x.reshape(-1, x.shape[-1])
+    route from the tensors: "gemm" runs it all as one kernel
+    (`block_fused.dense_gemm`, bf16 calls on CUDA that it takes), "split" the
+    f32 product and then one fused pass.  `reduce` (a block's row-parallel
+    products) sums the f32 product over tp first."""
+    x2, w = x.reshape(-1, x.shape[-1]), w.to(x.dtype)
     n = w.shape[-1]
-    aligned = x2.stride(-1) == 1 and x2.data_ptr() % 16 == 0 and (residual is None or residual.data_ptr() % 16 == 0)
-    route = block_fused.dense_route(x2.shape[0], n, x2.shape[1], cuda=x.is_cuda, dtype=x.dtype, lda=x2.stride(0),
-                                    aligned=aligned, reduce=reduce is not None,
-                                    grad=_differentiable(x, w, b, residual))
-    if route == "gemm":
-        res = None if residual is None else residual.reshape(-1, n)
-        y = block_fused.dense_gemm(x2, w.to(x.dtype), b, act=act, residual=res)
-        return y.reshape(*x.shape[:-1], n)
+    res2 = None if residual is None else residual.reshape(-1, n)
+    grad = _differentiable(x, w, b, residual)
+    if block_fused.dense_route(x2, w, b, res2, reduce=reduce is not None, grad=grad) == "gemm":
+        return block_fused.dense_gemm(x2, w, b, act=act, residual=res2).reshape(*x.shape[:-1], n)
     y = matmul_f32(x, w)
     if reduce is not None:
         y = reduce(y)
-    if _differentiable(x, w, b, residual):
+    if grad:
         block_fused.record_eager()
         return block_fused.dense_epilogue_reference(y, b, act, residual, x.dtype)
     return block_fused.dense_epilogue(y, b, act=act, residual=residual, dtype=x.dtype)

@@ -50,10 +50,13 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 ACT_CODE = {None: 0, "quick_gelu": 1, "gelu": 2, "gelu_tanh": 3}
 MAX_LN_WIDTH = 2048  # the row in registers: 8 f32 a lane per 256 of width, 64 at most
 MAX_GLU_WIDTH = 4096  # the gate's padded hidden in a block's registers, 32 f32 a thread at most
-# the fewest rows at which `dense_gemm` was timed against the split route, and beat it (tools/ab_dense.py on an
-# H100, PERF.md: 256 × 1152 → 1152 in 0.025 ms against 0.046); fewer rows, as the pooling head's one query row,
-# stay split
-GEMM_MIN_ROWS = 256
+GEMM_TILE = 192  # `dense_gemm`'s output tiles are 192 × 192, one persistent block an SM walking them
+# the deepest K that `dense_gemm` takes when its tiles fill fewer than the card's SMs: each tile's K then runs
+# on one SM while cuBLAS, on the split route, splits K over the idle ones.  tools/ab_dense.py on an H100
+# (PERF.md), two runs at 1-2048 rows: the kernel beat the split route at K 768 and 1152 at every row count,
+# and at K 3072 at all but one (~0.042 ms against 0.040-0.057); at K 4304 split won at 12 of 14 (the kernel
+# 0.054-0.061 ms against 0.035-0.053)
+GEMM_DEEP_K = 3072
 # of each 192-column tile of `dense_gemm`, the 64-column groups whose epilogue its consumer warps run
 # themselves, by activation and then by whether a residual is added; the finisher warps run the rest under
 # the next tile's products.  The costlier an element's epilogue, the more the consumers take, so that the
@@ -141,19 +144,58 @@ def counts() -> tuple[int, int]:
     return launches, record_eager.calls
 
 
-def dense_route(m: int, n: int, k: int, *, cuda: bool, dtype: torch.dtype, lda: int | None = None,
-                aligned: bool = True, reduce: bool = False, grad: bool = False) -> str:
-    """The route of a dense x (m, k) @ w (k, n) with its epilogue: "gemm"
-    (`dense_gemm`) for a CUDA bf16 call with m ≥ `GEMM_MIN_ROWS`, n a
-    multiple of 8, x's rows `lda` elements apart (k by default) with lda a
-    multiple of 8 (TMA's 16-byte strides), x's and the residual's data
-    16-byte aligned (`aligned`), no tensor-parallel `reduce` of the f32 product and nothing
-    for autograd to record (`grad`); "split" (the f32 product, then
+def _sm_count(device: torch.device) -> int | None:
+    """The card's SM count, or None off CUDA."""
+    if device.type != "cuda":
+        return None
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def gemm_refusal(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None, residual: torch.Tensor | None,
+                 dtype: torch.dtype = torch.bfloat16, act: str | None = None) -> Exception | None:
+    """What `dense_gemm` raises for these tensors on the card, or None where
+    it takes them (`dense_gemm` states what it takes)."""
+    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
+        return ValueError(f"x (M, K) and w (K, N) expected, got {tuple(x.shape)} and {tuple(w.shape)}")
+    m, k = x.shape
+    n = w.shape[1]
+    if k == 0:
+        return ValueError("dense_gemm needs a depth K > 0")
+    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+        return TypeError(f"dense_gemm multiplies bfloat16 operands, got {x.dtype} and {w.dtype}")
+    if (x.stride(1) != 1 and k > 1) or x.stride(0) % 8 or x.stride(0) < k or x.data_ptr() % 16:
+        return ValueError(f"x must have unit column stride, a row stride that is a multiple of 8 and 16-byte "
+                          f"aligned data, got strides {x.stride()}")
+    if not w.is_contiguous() or n % 8 or w.data_ptr() % 16:
+        return ValueError(f"w must be contiguous and 16-byte aligned with N a multiple of 8, got {tuple(w.shape)}")
+    if dtype not in (torch.bfloat16, torch.float32):
+        return TypeError(f"dense_gemm writes bfloat16 or float32, not {dtype}")
+    if dtype == torch.float32 and (bias is not None or act is not None or residual is not None):
+        return ValueError("dense_gemm writes the f32 product alone: no bias, act or residual")
+    if bias is not None and (bias.dtype != torch.float32 or bias.shape != (n,) or not bias.is_contiguous()):
+        return ValueError(f"bias must be a contiguous float32 ({n},) tensor, got {bias.dtype} {tuple(bias.shape)}")
+    if residual is not None and (residual.dtype != torch.bfloat16 or residual.shape != (m, n)
+                                 or not residual.is_contiguous() or residual.data_ptr() % 16):
+        return ValueError(f"residual must be a contiguous, 16-byte aligned bfloat16 tensor of shape {(m, n)}, "
+                          f"got {residual.dtype} {tuple(residual.shape)} contiguous={residual.is_contiguous()}")
+    return None
+
+
+def dense_route(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None,
+                residual: torch.Tensor | None = None, *, reduce: bool = False, grad: bool = False) -> str:
+    """The route of residual + act(x @ w + bias) in x's dtype, x (M, K) and
+    w (K, N), from the tensors themselves: "gemm" (`dense_gemm`) for a CUDA
+    bf16 call that `dense_gemm` takes (`gemm_refusal`), with no
+    tensor-parallel `reduce` of the f32 product and nothing for autograd to
+    record (`grad`), unless its tiles fill fewer than the card's SMs and K
+    is deeper than `GEMM_DEEP_K`; "split" (the f32 product, then
     `dense_epilogue` or its eager chain) for every other call."""
-    lda = k if lda is None else lda
-    fused = (cuda and dtype == torch.bfloat16 and not reduce and not grad and aligned and k > 0
-             and n % 8 == 0 and lda % 8 == 0 and lda >= k and m >= GEMM_MIN_ROWS)
-    return "gemm" if fused else "split"
+    sms = _sm_count(x.device)
+    if sms is None or reduce or grad or gemm_refusal(x, w, bias, residual):
+        return "split"
+    (m, k), n = x.shape, w.shape[1]
+    tiles = -(-m // GEMM_TILE) * -(-n // GEMM_TILE)
+    return "split" if tiles < sms and k > GEMM_DEEP_K else "gemm"
 
 
 def dense_gemm_reference(
@@ -345,29 +387,10 @@ def dense_gemm(
         raise ValueError(f"unknown act {act}")
     if kind == "cpu":
         return dense_gemm_reference(x, w, bias, act, residual, dtype)
-    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
-        raise ValueError(f"x (M, K) and w (K, N) expected, got {tuple(x.shape)} and {tuple(w.shape)}")
-    m, k = x.shape
-    n = w.shape[1]
-    if k == 0:
-        raise ValueError("dense_gemm needs a depth K > 0")
-    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
-        raise TypeError(f"dense_gemm multiplies bfloat16 operands, got {x.dtype} and {w.dtype}")
-    if (x.stride(1) != 1 and k > 1) or x.stride(0) % 8 or x.stride(0) < k or x.data_ptr() % 16:
-        raise ValueError(f"x must have unit column stride, a row stride that is a multiple of 8 and 16-byte "
-                         f"aligned data, got strides {x.stride()}")
-    if not w.is_contiguous() or n % 8 or w.data_ptr() % 16:
-        raise ValueError(f"w must be contiguous and 16-byte aligned with N a multiple of 8, got {tuple(w.shape)}")
-    if dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"dense_gemm writes bfloat16 or float32, not {dtype}")
-    if dtype == torch.float32 and (bias is not None or act is not None or residual is not None):
-        raise ValueError("dense_gemm writes the f32 product alone: no bias, act or residual")
-    if bias is not None and (bias.dtype != torch.float32 or bias.shape != (n,) or not bias.is_contiguous()):
-        raise ValueError(f"bias must be a contiguous float32 ({n},) tensor, got {bias.dtype} {tuple(bias.shape)}")
-    if residual is not None and (residual.dtype != torch.bfloat16 or residual.shape != (m, n)
-                                 or not residual.is_contiguous() or residual.data_ptr() % 16):
-        raise ValueError(f"residual must be a contiguous, 16-byte aligned bfloat16 tensor of shape {(m, n)}, "
-                         f"got {residual.dtype} {tuple(residual.shape)} contiguous={residual.is_contiguous()}")
+    refusal = gemm_refusal(x, w, bias, residual, dtype, act)
+    if refusal is not None:
+        raise refusal
+    (m, k), n = x.shape, w.shape[1]
     out = torch.empty((m, n), dtype=dtype, device=x.device)
     if out.numel() == 0:
         return out

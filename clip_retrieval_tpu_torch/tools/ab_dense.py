@@ -7,8 +7,10 @@ epilogue (`crt_dense_gemm`) against the split route and cuBLAS alone.
 At every `_dense` shape of the benchmark's three cells at batch 256 (SigLIP
 So400m/384's image and text towers, ViT-L/14's, EVA02-L/14-336's image v, wo
 and fc2 and its text tower, and the three patch embeddings, whose im2col rows
-of 588 lie 592 apart) and at smaller row counts of SigLIP's shapes (the sweep
-that sets `block_fused.GEMM_MIN_ROWS`), bf16, times with CUDA events:
+of 588 lie 592 apart) and at 1 to 8192 rows of SigLIP's and ViT-L/14's text
+shapes (the sweep that sets `block_fused.GEMM_DEEP_K`: at few rows the split
+route's cuBLAS splits a deep K over the SMs the kernel's few tiles leave
+idle), bf16, times with CUDA events:
 
 - `gemm`: `csrc/dense_gemm.cu` of this checkout (and `gemm_<i>` of each
   other checkout named, and each `--variant`: this source with the named
@@ -64,7 +66,7 @@ TOWERS = {
 COUNT = {"qkv": 3, "v": 1, "wo": 1, "fc1": 1, "fc2": 1}
 PATCHES = {"siglip_patch": (256 * 729, 1152, True), "vitl_patch": (256 * 256, 1024, False),
            "eva_patch": (256 * 576, 1024, True)}
-SWEEP_ROWS = (256, 1024, 2048, 4096, 8192)
+SWEEP_ROWS = (1, 16, 77, 128, 256, 1024, 2048, 4096, 8192)
 
 
 def shapes() -> list[dict]:
@@ -80,8 +82,10 @@ def shapes() -> list[dict]:
         out.append(dict(name=name, m=m, k=PATCH_K, n=n, lda=PATCH_LDA, act=None, bias=bias, residual=False,
                         block=None, count=1))
     for m in SWEEP_ROWS:
-        for call, k, n, act in (("qkv", 1152, 1152, None), ("fc1", 1152, 4304, "gelu_tanh")):
-            out.append(dict(name=f"sweep.{call}.m{m}", m=m, k=k, n=n, lda=k, act=act, bias=True, residual=False,
+        for call, k, n, act, residual in (("qkv", 1152, 1152, None, False), ("fc1", 1152, 4304, "gelu_tanh", False),
+                                          ("fc2", 4304, 1152, None, True), ("text_qkv", 768, 768, None, False),
+                                          ("text_fc2", 3072, 768, None, True)):
+            out.append(dict(name=f"sweep.{call}.m{m}", m=m, k=k, n=n, lda=k, act=act, bias=True, residual=residual,
                             block=None, count=1))
     return out
 

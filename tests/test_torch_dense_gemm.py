@@ -3,8 +3,9 @@
 route that chooses it (`block_fused.dense_route`).
 
 On the CPU: the route at every `_dense` shape of the benchmark's cells, at
-the small row counts, at unaligned N or K, and for tensor-parallel and
-differentiable calls; the wrapper's plain version is
+the small row counts, at unaligned N or K, for what the wrapper refuses, and
+for tensor-parallel and differentiable calls (meta tensors seen as on an
+H100); the wrapper's plain version is
 `dense_epilogue_reference` over `matmul_f32`, bit for bit; `_dense` keeps
 the split route on the CPU.  The `cuda`-marked tests hold the kernel to the
 plain version on the card at the cells' shapes, ragged edges included, and
@@ -40,42 +41,85 @@ CELL_DENSES = [
 PATCHES = [(186_624, 588, 1152), (65_536, 588, 1024), (147_456, 588, 1024)]
 
 
-def _route(m, n, k, **kw):
-    return block_fused.dense_route(m, n, k, **({"cuda": True, "dtype": BF16} | kw))
+H100_SMS = 132
+
+
+@pytest.fixture
+def card(monkeypatch):
+    """The route's view of a meta tensor as a tensor on an H100 (132 SMs):
+    the cells' shapes are tried without their data."""
+    monkeypatch.setattr(block_fused, "_sm_count", lambda device: H100_SMS if device.type == "meta" else None)
+
+
+def _route(m, n, k, *, lda=None, dtype=BF16, offset=0, residual=False, reduce=False, grad=False):
+    """The route of x (m, k) in rows `lda` apart, starting `offset` elements
+    into its storage, @ w (k, n) with an f32 bias, as meta tensors."""
+    lda = k if lda is None else lda
+    x = torch.empty(m * lda + offset, device="meta", dtype=dtype)[offset:].view(m, lda)[:, :k]
+    w = torch.empty(k, n, device="meta", dtype=dtype)
+    bias = torch.empty(n, device="meta")
+    res = torch.empty(m, n, device="meta", dtype=dtype) if residual else None
+    return block_fused.dense_route(x, w, bias, res, reduce=reduce, grad=grad)
 
 
 # -- the route (CPU) ------------------------------------------------------------
 
 
 @pytest.mark.parametrize("m,k,n", CELL_DENSES)
-def test_route_takes_the_gemm_at_every_cell_shape(m, k, n):
+def test_route_takes_the_gemm_at_every_cell_shape(m, k, n, card):
     assert _route(m, n, k) == "gemm"
+    assert _route(m, n, k, residual=True) == "gemm"
     assert _route(m, n, k, reduce=True) == "split"  # the train step's row-parallel products
     assert _route(m, n, k, grad=True) == "split"  # autograd records the call
     assert _route(m, n, k, dtype=torch.float32) == "split"
-    assert _route(m, n, k, cuda=False) == "split"
-    assert _route(m, n, k, aligned=False) == "split"
+    assert _route(m, n, k, offset=1) == "split"  # x's data not 16-byte aligned
 
 
 @pytest.mark.parametrize("m,k,n", PATCHES)
-def test_route_of_the_patch_embedding_follows_the_row_stride(m, k, n):
+def test_route_of_the_patch_embedding_follows_the_row_stride(m, k, n, card):
     assert _route(m, n, k, lda=592) == "gemm"
     assert _route(m, n, k) == "split"  # rows of 588 bf16 are not 16-byte aligned
 
 
-@pytest.mark.parametrize("m,k,n", [(1, 1152, 1152), (77, 768, 768), (77, 768, 3072),
-                                   (block_fused.GEMM_MIN_ROWS - 1, 1152, 1152)])
-def test_route_keeps_small_row_counts_split(m, k, n):
-    """The pooling head's q (one row for every image) and serving's
-    single-caption text batches (77 rows); 256 rows, the pooling head's wo
-    and fc1, take the kernel."""
+@pytest.mark.parametrize("m,k,n", [(1, 4304, 1152), (16, 4304, 1152), (2048, 4304, 1152), (77, 4096, 1024)])
+def test_route_keeps_small_row_counts_split(m, k, n, card):
+    """A product deeper than `GEMM_DEEP_K` whose tiles fill fewer than the
+    card's SMs (the MLP's second product of a few images or captions, K
+    4304 or 4096) stays split, where cuBLAS splits K; the same rows take
+    the kernel once the tiles fill the card, and at K 1152 or 3072 at any
+    row count, as the pooling head's one query row (1 × 1152 → 1152) and
+    its 256-row products do."""
     assert _route(m, n, k) == "split"
-    assert _route(block_fused.GEMM_MIN_ROWS, n, k) == "gemm"
+    tiles_n = -(-n // block_fused.GEMM_TILE)
+    filled = -(-H100_SMS // tiles_n) * block_fused.GEMM_TILE  # rows whose tiles fill the SMs
+    assert _route(filled, n, k) == "gemm"
+    assert _route(filled - block_fused.GEMM_TILE, n, k) == "split"
+    assert _route(m, n, 1152) == "gemm"
+    assert _route(m, n, block_fused.GEMM_DEEP_K) == "gemm"
+    assert _route(m, n, block_fused.GEMM_DEEP_K + 8) == "split"
 
 
 @pytest.mark.parametrize("k,n", [(1152, 1001), (1150, 1152), (2730, 1024), (1152, 4300)])
-def test_route_keeps_unaligned_n_or_k_split(k, n):
+def test_route_keeps_unaligned_n_or_k_split(k, n, card):
     assert _route(186_624, n, k) == "split"
+
+
+def test_route_refuses_what_the_wrapper_refuses(card):
+    """The route sends to the kernel only what `dense_gemm` takes: a
+    residual that is not contiguous, or not 16-byte aligned, a bias that is
+    not f32, or w not contiguous, stays split."""
+    x = torch.empty(4096, 1152, device="meta", dtype=BF16)
+    w, bias = torch.empty(1152, 1152, device="meta", dtype=BF16), torch.empty(1152, device="meta")
+    assert block_fused.dense_route(x, w, bias, torch.empty(4096, 1152, device="meta", dtype=BF16)) == "gemm"
+    strided = torch.empty(4096, 1160, device="meta", dtype=BF16)[:, :1152]
+    unaligned = torch.empty(4096 * 1152 + 1, device="meta", dtype=BF16)[1:].view(4096, 1152)
+    for res in (strided, unaligned):
+        assert block_fused.gemm_refusal(x, w, bias, res) is not None
+        assert block_fused.dense_route(x, w, bias, res) == "split"
+    assert block_fused.dense_route(x, w, bias.to(BF16)) == "split"
+    assert block_fused.dense_route(x, w.t(), bias) == "split"
+    cpu = torch.zeros(256, 64, dtype=BF16)
+    assert block_fused.dense_route(cpu, torch.zeros(64, 64, dtype=BF16)) == "split"  # no card
 
 
 # -- the plain version (CPU) ----------------------------------------------------
@@ -260,18 +304,23 @@ def test_cuda_kernel_f32_product_against_f64(m, k, n, lda):
 @pytest.mark.cuda
 def test_cuda_dense_routes_and_counts():
     """`_dense` on the card: a large bf16 call takes the kernel (one launch of
-    `dense_gemm`, none of `dense_epilogue`), a small one the split route."""
+    `dense_gemm`, none of `dense_epilogue`), and so does the pooling head's
+    one query row; a deep product of few rows (K 4304, 255 rows) the split
+    route."""
     dev = _cuda()
     x, w, bias, res = _operands(dev, 8192, 1152, 1152, 1152, 5, residual=True)
+    deep_x, deep_w, _, _ = _operands(dev, 255, 4304, 1152, 4304, 6, residual=False)
     w32 = w.float()
     g, s = block_fused.dense_gemm.launches, block_fused.dense_epilogue.launches
     with torch.inference_mode():
         y = tclip._dense(x.reshape(32, 256, 1152), w32, bias, act="gelu_tanh", residual=res.reshape(32, 256, 1152))
         assert (block_fused.dense_gemm.launches, block_fused.dense_epilogue.launches) == (g + 1, s)
-        z = tclip._dense(x[: block_fused.GEMM_MIN_ROWS - 1], w32, bias)
-        assert (block_fused.dense_gemm.launches, block_fused.dense_epilogue.launches) == (g + 1, s + 1)
+        q = tclip._dense(x[:1], w32, bias)
+        assert (block_fused.dense_gemm.launches, block_fused.dense_epilogue.launches) == (g + 2, s)
+        z = tclip._dense(deep_x, deep_w.float(), bias)
+        assert (block_fused.dense_gemm.launches, block_fused.dense_epilogue.launches) == (g + 2, s + 1)
     torch.cuda.synchronize()
-    assert y.shape == (32, 256, 1152) and z.shape == (block_fused.GEMM_MIN_ROWS - 1, 1152)
+    assert y.shape == (32, 256, 1152) and q.shape == (1, 1152) and z.shape == (255, 1152)
 
 
 @pytest.mark.cuda
